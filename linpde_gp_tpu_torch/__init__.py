@@ -1,15 +1,21 @@
 """linpde_gp_tpu_torch: the PyTorch/CUDA port of linpde_gp_tpu.
 
 The JAX package ``linpde_gp_tpu`` stays the reference; this package
-mirrors its module paths and never imports JAX.  The slice ported so far
-is gram-free GP conditioning on operator observations
-(:class:`models.iterative.IterativeGPRegressor`) with hand-written CUDA
-kernels for Gram assembly and the Gram matvec (``csrc/gram.cu``).
+mirrors its module paths and never imports JAX.  The slices ported so far
+are gram-free GP conditioning on operator observations
+(:class:`models.iterative.IterativeGPRegressor`, from a
+:class:`models.gp.GaussianProcess` prior and an operator of
+``ops.diffops``) through the symbolic layer that derives closed-form
+kernel specs (``ops/kernels``, ``ops/diffops``, ``ops/transforms``), with
+hand-written CUDA kernels for Gram assembly and the Gram matvec
+(``csrc/gram.cu``) and the banded matvec of compactly supported kernels
+(``csrc/banded.cu``).
 """
 
 import torch
 
 from .config import MODES, config
+from .models.gp import GaussianProcess
 from .models.iterative import IterativeGPRegressor
 
 # Full float32 matmuls (the Nyström GEMMs and the Woodbury apply): TF32
@@ -18,4 +24,4 @@ from .models.iterative import IterativeGPRegressor
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
-__all__ = ["IterativeGPRegressor", "MODES", "config"]
+__all__ = ["GaussianProcess", "IterativeGPRegressor", "MODES", "config"]

@@ -37,7 +37,10 @@ class _Config:
     gram_tile: int = 16
 
     #: K2 (Gram matvec) rows per block, which is also the width of the
-    #: column tile staged in shared memory (plain and f64 bodies).
+    #: column tile staged in shared memory (plain and f64 bodies).  The
+    #: banded matvec uses it in every mode, as rows per block (each with
+    #: its own column window) and as the width of the column tiles that
+    #: ``band_tiles`` / ``total_tiles`` count.
     matvec_tile: int = 128
 
     #: K2 rows per block / column-tile width for the float-float body.

@@ -88,6 +88,28 @@ def _collapse_terms(terms: tuple) -> tuple:
     return tuple((key[0], key[1], nest(groups[key])) for key in order)
 
 
+def kernel_term_specs(kernel) -> tuple[float, tuple] | None:
+    """``(outer_scale, terms)`` of a kernel of the sum-of-products
+    closed-form family, or ``None`` (``pallas_gram.py:460`` of the JAX
+    package; tuple for tuple the same spec)."""
+    from .kernels.arithmetic import ScaledCovarianceFunction
+    from .transforms.product import SumOfProductsKernel, transform_product_kernel
+
+    scale = 1.0
+    while isinstance(kernel, ScaledCovarianceFunction):
+        scale *= kernel.scalar
+        kernel = kernel.covfunc
+    # A base kernel is the identity transform of itself.
+    sop = kernel if isinstance(kernel, SumOfProductsKernel) else transform_product_kernel(kernel, None, None)
+    if sop is None:
+        return None
+    terms = tuple(
+        (float(c), tuple((f.kind, f.scale, f.poly, f.parity, f.prefactor) for f in factors))
+        for c, factors in sop.terms
+    )
+    return scale, terms
+
+
 # -- plain versions of the kernel bodies ---------------------------------------
 
 

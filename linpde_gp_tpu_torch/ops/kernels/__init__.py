@@ -1,0 +1,30 @@
+"""Covariance functions of the port (the closed-form product family)."""
+
+from .arithmetic import ScaledCovarianceFunction, SumCovarianceFunction, ZeroCovarianceFunction
+from .base import CovarianceFunction, StationaryMixin
+from .stationary import ExpQuad, Matern, half_integer_matern_coefficients
+from .tensor_product import TensorProduct
+from .wendland import (
+    WendlandCovarianceFunction,
+    WendlandFunction,
+    WendlandPolynomial,
+    pascal_row,
+    wendland_polynomial,
+)
+
+__all__ = [
+    "CovarianceFunction",
+    "StationaryMixin",
+    "ScaledCovarianceFunction",
+    "SumCovarianceFunction",
+    "ZeroCovarianceFunction",
+    "ExpQuad",
+    "Matern",
+    "half_integer_matern_coefficients",
+    "TensorProduct",
+    "WendlandCovarianceFunction",
+    "WendlandFunction",
+    "WendlandPolynomial",
+    "pascal_row",
+    "wendland_polynomial",
+]

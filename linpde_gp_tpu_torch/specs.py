@@ -5,13 +5,15 @@ terms)`` spec of numbers: ``terms`` is a tuple of ``(coeff, factors)``
 with one factor ``(kind, scale, poly, parity, prefactor)`` per input
 dimension, each factor being ``prefactor * P(t) * exp(-t or -t^2) *
 sign(d)^parity`` (``linpde_gp_tpu/ops/pallas_gram.py:29-32``).  The
-symbolic layer that derives specs is not ported yet, so specs travel as
-JSON; this module loads and saves them as hashable nested tuples (the
+port's symbolic layer derives them (``ops/gram.kernel_term_specs``);
+this module loads and saves them as JSON, as hashable nested tuples (the
 collapsed-group cache in ``ops/gram.py`` keys on them).
 
 ``data/heat_bench_specs.json`` holds the observation (``H k H*``) and
-cross (``H k``) specs of the heat-equation benchmark problem; it is
-written from the JAX package by ``tests/make_torch_spec_fixtures.py``.
+cross (``H k``) specs of the heat-equation benchmark problem, written
+from the JAX package by ``tests/make_torch_spec_fixtures.py``: the
+fixture that the port's derivation (``chip_smoke.py``, the tests) is
+held to.
 """
 
 from __future__ import annotations

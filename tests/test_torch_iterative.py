@@ -54,7 +54,7 @@ def reference():
 
 def _port(mode, tol, Y=None):
     X, Y0, xq = _problem()
-    reg = IterativeGPRegressor(
+    reg = IterativeGPRegressor.from_specs(
         SPECS["obs"], SPECS["cross"], X, Y0 if Y is None else Y, tol=tol, mode=mode, device="cpu", **KW
     )
     return reg, reg.mean(xq)
@@ -110,4 +110,111 @@ def test_refit_matches_fresh():
 def test_mode_is_explicit():
     X, Y, _ = _problem(n=32)
     with pytest.raises(ValueError, match="mode"):
-        IterativeGPRegressor(SPECS["obs"], SPECS["cross"], X, Y, device="cpu")
+        IterativeGPRegressor.from_specs(SPECS["obs"], SPECS["cross"], X, Y, device="cpu")
+
+
+# -- the prior / L constructor ---------------------------------------------------------
+
+
+def _heat_prior():
+    from linpde_gp_tpu_torch import GaussianProcess
+    from linpde_gp_tpu_torch.models.functions import Zero
+    from linpde_gp_tpu_torch.ops import kernels
+
+    return GaussianProcess(
+        Zero((2,)),
+        1.0 * kernels.TensorProduct(
+            kernels.Matern((), nu=1.5, lengthscales=2.5), kernels.Matern((), nu=2.5, lengthscales=2.0)
+        ),
+    )
+
+
+def test_prior_and_operator_equal_the_specs():
+    """``IterativeGPRegressor(prior, X, Y, L=H)`` derives the benchmark's
+    specs and then runs exactly what ``from_specs`` runs."""
+    from linpde_gp_tpu_torch.ops.diffops import HeatOperator
+
+    X, Y, xq = _problem()
+    reg = IterativeGPRegressor(
+        _heat_prior(), X, Y, L=HeatOperator((2,), alpha=0.1), tol=1e-10, mode="f64", device="cpu", **KW
+    )
+    assert reg._obs_spec == SPECS["obs"] and reg._cross_spec == SPECS["cross"]
+    assert reg._banded is None
+    ref, m_ref = _port("f64", 1e-10)
+    assert torch.equal(reg.mean(xq), m_ref)
+    assert reg.solve_info == ref.solve_info
+
+
+def test_prior_checks():
+    from linpde_gp_tpu_torch import GaussianProcess
+    from linpde_gp_tpu_torch.models.functions import Polynomial
+    from linpde_gp_tpu_torch.ops import kernels
+
+    X, Y, _ = _problem(n=32)
+    gp = GaussianProcess(Polynomial([1.0, 2.0]), kernels.Matern((), nu=1.5))
+    with pytest.raises(NotImplementedError, match="Zero prior mean"):
+        IterativeGPRegressor(gp, X[:, 0], Y, mode="f64", device="cpu")
+    with pytest.raises(ValueError, match="mode"):
+        IterativeGPRegressor(_heat_prior(), X, Y, device="cpu")
+
+
+# -- compact support: the banded route (test_wendland_fast.py:220 port) ----------------
+
+
+@pytest.fixture(scope="module")
+def wendland_case():
+    """n = 768 sorted points on [0, 15], Wendland(k=1, l=0.5), noise 1e-3,
+    rank 128, column tiles of 64 in both packages."""
+    from linpde_gp_tpu.config import config as jax_config
+
+    rng = np.random.default_rng(31)
+    n = 768
+    X = np.sort(rng.uniform(0.0, 15.0, n))
+    Y = np.sin(X)
+    xq = np.linspace(0.0, 15.0, 64)
+    prior = lgt.GaussianProcess(lgt.functions.Zero(()), lgt.kernels.WendlandCovarianceFunction((), k=1, lengthscales=0.5))
+    saved = jax_config.matvec_tile
+    jax_config.set(matvec_tile=64)
+    try:
+        jreg = JaxRegressor(prior, X, Y, noise_variance=1e-3, tol=1e-8, maxiter=600, precond_rank=128)
+        jax_out = dict(
+            band=(jreg._banded.band_tiles, jreg._banded.total_tiles),
+            w=np.asarray(jreg.representer_weights),
+            mean=np.asarray(jreg.mean(jnp.asarray(xq))),
+        )
+    finally:
+        jax_config.set(matvec_tile=saved)
+    G = np.asarray(prior.cov.matrix(jnp.asarray(X))) + 1e-3 * np.eye(n)
+    w_ref = np.linalg.solve(G, Y)
+    mean_ref = np.asarray(prior.cov.matrix(jnp.asarray(xq), jnp.asarray(X))) @ w_ref
+    return X, Y, xq, jax_out, w_ref, mean_ref
+
+
+def test_wendland_routes_banded(wendland_case):
+    from linpde_gp_tpu_torch import GaussianProcess
+    from linpde_gp_tpu_torch.config import config
+    from linpde_gp_tpu_torch.models.functions import Zero
+    from linpde_gp_tpu_torch.ops import kernels
+
+    X, Y, xq, jax_out, w_ref, mean_ref = wendland_case
+    prior = GaussianProcess(Zero(()), kernels.WendlandCovarianceFunction((), k=1, lengthscales=0.5))
+    saved = config.matvec_tile
+    config.matvec_tile = 64
+    try:
+        reg = IterativeGPRegressor(
+            prior, X, Y, noise_variance=1e-3, tol=1e-8, maxiter=600, precond_rank=128, mode="f64", device="cpu"
+        )
+    finally:
+        config.matvec_tile = saved
+    assert reg._banded is not None, "banded matvec not routed"
+    assert (reg._banded.band_tiles, reg._banded.total_tiles) == jax_out["band"]
+    assert reg._banded.band_tiles < reg._banded.total_tiles
+    w = reg.representer_weights.numpy()
+    # The JAX test's bounds against the dense f64 solve: CG tol 1e-8 leaves
+    # ~1e-6 relative weight error on this ill-conditioned Gram.
+    np.testing.assert_allclose(w, w_ref, rtol=0, atol=1e-5 * np.abs(w_ref).max())
+    mean = reg.mean(xq).numpy()
+    np.testing.assert_allclose(mean, mean_ref, rtol=0, atol=1e-6)
+    # The JAX regressor on the same data, within the sum of both bounds.
+    np.testing.assert_allclose(w, jax_out["w"], rtol=0, atol=2e-5 * np.abs(w_ref).max())
+    np.testing.assert_allclose(mean, jax_out["mean"], rtol=0, atol=2e-6)

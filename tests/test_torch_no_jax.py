@@ -28,8 +28,43 @@ _MODULES = [
     "linpde_gp_tpu_torch.ops._cuda",
     "linpde_gp_tpu_torch.ops.linalg.chol",
     "linpde_gp_tpu_torch.ops.linalg.pcg",
+    "linpde_gp_tpu_torch.models",
+    "linpde_gp_tpu_torch.ops",
+    "linpde_gp_tpu_torch.ops.linalg",
+    "linpde_gp_tpu_torch.utils",
+    "linpde_gp_tpu_torch.ops.banded",
+    "linpde_gp_tpu_torch.ops.kernels",
+    "linpde_gp_tpu_torch.ops.kernels.base",
+    "linpde_gp_tpu_torch.ops.kernels.arithmetic",
+    "linpde_gp_tpu_torch.ops.kernels.stationary",
+    "linpde_gp_tpu_torch.ops.kernels.tensor_product",
+    "linpde_gp_tpu_torch.ops.kernels.wendland",
+    "linpde_gp_tpu_torch.ops.diffops",
+    "linpde_gp_tpu_torch.ops.diffops.coefficients",
+    "linpde_gp_tpu_torch.ops.diffops.linfuncop",
+    "linpde_gp_tpu_torch.ops.diffops.lindiffop",
+    "linpde_gp_tpu_torch.ops.transforms",
+    "linpde_gp_tpu_torch.ops.transforms.univariate",
+    "linpde_gp_tpu_torch.ops.transforms.product",
+    "linpde_gp_tpu_torch.ops.transforms.dispatch",
+    "linpde_gp_tpu_torch.utils.shapes",
+    "linpde_gp_tpu_torch.models.functions",
+    "linpde_gp_tpu_torch.models.functions.base",
+    "linpde_gp_tpu_torch.models.functions.polynomial",
+    "linpde_gp_tpu_torch.models.gp",
     "linpde_gp_tpu_torch.models.iterative",
 ]
+
+
+def test_module_list_covers_the_package():
+    """Every module of the port is in the blocked-import check above."""
+    found = set()
+    for dirpath, _dirs, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(dirpath, f), ROOT)[: -len(".py")].replace(os.sep, ".")
+                found.add(rel[: -len(".__init__")] if rel.endswith(".__init__") else rel)
+    assert found <= set(_MODULES), sorted(found - set(_MODULES))
 
 
 def test_port_imports_with_jax_blocked():

@@ -186,7 +186,7 @@ def test_pcg_ff_stops_on_breakdown_without_nan():
     specs = load_specs()
     rng = np.random.default_rng(2)
     X = np.stack([rng.uniform(0, 5, 600), rng.uniform(-1, 1, 600)], -1)
-    reg = IterativeGPRegressor(
+    reg = IterativeGPRegressor.from_specs(
         specs["obs"], specs["cross"], X, rng.standard_normal(600), noise_variance=1e-4, tol=1e-12,
         precond_rank=128, mode="plain", device="cpu",
     )
