@@ -13,34 +13,60 @@ Phases, each printed as it finishes:
               prints seconds and ptxas usage.
 3. kernels  - each kernel in the modes plain, ff and f64 against its plain
               PyTorch version on the card: K1 (Gram) and K2 (Gram matvec) on
-              the heat benchmark specs at shapes up to 2048 with r in {1, 4};
-              the banded matvec on two compactly supported specs (the 1-D
+              the heat benchmark specs at shapes up to 2048, K2 with r in
+              {1, 4, 48, 64, 100, 256} right-hand-side columns (r > 4 is
+              the multi-column route, whose launches are counted apart, at
+              RW = 64, 64, 128, 256 columns a block); the
+              banded matvec on two compactly supported specs (the 1-D
               Wendland experiment kernel and a 2-D d/dx0 Wendland tensor
-              product) at 3000 x 4000 unsorted points with r in {1, 4},
-              also against dense K2 on the same inputs.
+              product) at 3000 x 4000 unsorted points with the same r, also
+              against dense K2 on the same inputs.  ff is held row by row to
+              the f64 product rounded.
 4. timing   - each kernel beside its plain version at the main paths' shapes:
-              K2 at N x N and (cross kernel) nq x N with r = 1, K1 at
-              N x rank and rank x rank; the banded matvec at N x N, r = 1, on
-              the Wendland data, beside dense K2 on the same spec, with the
-              band fraction.
-5. main     - both main paths through the library's entry points
+              K2 at N x N with r in {1, 4, 64, 256} and (cross kernel)
+              nq x N with r = 1, K1 at N x rank and rank x rank; the banded
+              matvec at N x N, r in {1, 4, 256}, on the Wendland data,
+              beside dense K2 on the same spec at r = 1, with the band
+              fraction.  The log (not the kernels line) also gives 64 x the
+              r = 4 time: an estimate of what the r <= 4 route would take
+              at r = 256.
+5. main     - every path through the library's entry points
               (``IterativeGPRegressor(prior, X, Y, L=...)``,
-              ``.representer_weights`` and ``.mean``), mode ff and then mode
-              f64, the launch counts set to 0 before each run and read after:
+              ``.representer_weights``, ``.mean`` and ``.var``), modes ff
+              and f64, the launch counts set to 0 before each run and read
+              after:
               - heat: N = 100,000 heat collocation points drawn as bench.py
                 draws them (seed 0, float32), L = HeatOperator((2,), 0.1),
                 nq = 8,192, Nystrom rank min(8192, N // 4), noise 1e-3 k(0),
                 tol 1e-5.  The derived specs must equal
-                ``data/heat_bench_specs.json``; K1 and K2 must launch.
+                ``data/heat_bench_specs.json``.  Then ``var`` at the first
+                256 queries with block_size 256 and again with 128: 0 <= var
+                <= prior var, the partitions agree, std within the JAX run's
+                range, and ff agrees with f64.  K1, K2 and K2's multi-column
+                route must launch.
               - Wendland: ``experiments/wendland_banded_tpu.py``'s problem:
                 2 * Wendland(k=2, l=0.05) on N = 100,000 sorted uniform
                 points of [0, 1] (seed 0), Y = sin(8 X), noise 1e-3, tol
-                1e-5, rank 1024; nq = 8,192.  It must be banded-routed and
-                launch K1 (Nystrom blocks), the banded matvec (CG) and K2
-                (mean).
-              Each checks finite weights, the solver's relres and the true
-              relres recomputed by the float64 plain version, and the mean
-              at 64 queries against the float64 plain version.
+                1e-5, rank 1024; nq = 8,192; then ``var`` at 256 queries
+                (block 256); in mode f64 also at CG tols 1e-9 and 1e-10,
+                which must agree: the reference both modes' tol-1e-5
+                variance is reported against.  It must be
+                banded-routed and launch K1 (Nystrom blocks), the banded
+                matvec at r = 1 (CG) and r = 256 (variance) and K2 (mean).
+              - anchored heat IBVP: ``experiments/large_scale_tpu.py``'s
+                problem (H u = 0 at N = 100,000 points, 96 initial and 2 x 48
+                boundary anchors from the analytic solution u*, anchor noise
+                1e-5, rank 4096): joint true relres of the 2 x 2 system <=
+                1e-3 by the f64 plain versions, RMSE against u* at 8,192
+                queries <= 4e-4, then ``var`` at 64 queries (one block of
+                64), and in mode f64 the reference as above.
+              - dense oracle: the heat problem at N = 4,096, without anchors
+                and with 24, ``var`` at 128 queries against a float64 dense
+                Cholesky posterior, in all three modes.
+              The heat and Wendland runs check finite weights, the solver's
+              relres and the true relres recomputed by the float64 plain
+              version, and the mean at 64 queries against the float64 plain
+              version.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``, printed only if every phase
@@ -64,13 +90,45 @@ PHASES = ("device", "build", "kernels", "timing", "main")
 KERNELS = {
     "gram": ("linpde_gp_tpu/ops/pallas_gram.py:277", "K1", "linpde_gp_tpu_torch/csrc/gram.cu"),
     "gram_matvec": ("linpde_gp_tpu/ops/pallas_gram.py:393", "K2", "linpde_gp_tpu_torch/csrc/gram.cu"),
+    "gram_matvec_wide": ("linpde_gp_tpu/ops/pallas_gram.py:393", "K2, r > 4", "linpde_gp_tpu_torch/csrc/gram.cu"),
     "banded_matvec": (
         "linpde_gp_tpu/ops/pallas_gram.py:664, linpde_gp_tpu/ops/pallas_gram.py:728",
         "K3+K4",
         "linpde_gp_tpu_torch/csrc/banded.cu",
     ),
+    "banded_matvec_wide": ("linpde_gp_tpu/ops/pallas_gram.py:664", "K3, r > 4", "linpde_gp_tpu_torch/csrc/banded.cu"),
 }
 WENDLAND_RANK = 1024
+#: Right-hand-side widths of the kernel checks: the r <= 4 route and the
+#: multi-column route at each of its block widths RW = 64 (r = 48 ragged,
+#: r = 64 the anchored variance's block), 128 (r = 100 ragged) and 256.
+R_CHECK = (1, 4, 48, 64, 100, 256)
+#: ff must be the f64 product rounded, row by row: |ff_i - f64_i| <= eps
+#: |f64_i| + ROW_BOUND eps sum_j |k_ij v_j|.  A body that sums in f32
+#: misses it by ~0.3 (the TPU-style sum, measured on the H100).
+ROW_BOUND = 1e-3
+#: Queries of the heat and Wendland variance runs; the anchored IBVP's.
+VAR_QUERIES, IBVP_VAR_QUERIES = 256, 64
+#: Nystrom rank of the anchored IBVP (experiments/large_scale_tpu.py).
+IBVP_RANK = 4096
+#: Two variances of one problem solved to CG tol 1e-5 (two block
+#: partitions, or modes ff and f64) agree within this share of max var.
+VAR_REL_BOUND = 1e-4
+#: The Wendland and IBVP variances (4e-6 and 2e-7 at the smallest) sit
+#: 5e5 and 4e6 times below the prior variance they are subtracted from.
+#: CG tol is relative to the right-hand side b, so tol 1e-5 does not bound
+#: their error relative to var: on the H100 the IBVP's f64 variance at tol
+#: 1e-5 is up to 80 % off per query.  f64 CG's quadratic form errs by
+#: ||r||^2_{A^-1} <= (tol ||b||)^2 / sigma^2, second order in tol, so the
+#: f64 variance at REF_TOLS[1] is the reference, and the run at REF_TOLS[0]
+#: must agree with it within REF_AGREE of var per query (an error 100x the
+#: reference's, ~1e-8 of var by that scaling).  The tol-1e-5 variances of
+#: both modes are reported against it, not gated.
+REF_TOLS, REF_AGREE = (1e-9, 1e-10), 1e-3
+#: The small dense oracle: CG tol per mode and the bound on its variance,
+#: relative to max var.
+ORACLE_TOL = {"plain": 1e-5, "ff": 1e-6, "f64": 1e-8}
+ORACLE_VAR_BOUND = {"plain": 1e-3, "ff": 1e-5, "f64": 1e-7}
 
 failures: list[str] = []
 
@@ -104,6 +162,35 @@ def wendland_data(n: int, nq: int):
     Y = np.sin(8.0 * X)
     Xq = rng.uniform(0.0, 1.0, nq)
     return X, v, Y, Xq
+
+
+def u_star(X):
+    """The heat IBVP's analytic solution (``HeatEquationDirichletProblem``
+    on [-1, 1] with alpha = 0.1, IC the first sine, zero BCs;
+    ``linpde_gp_tpu/models/problems/pde.py:391-419``,
+    ``functions/basic.py:181-215``): ``u*(t, x) = sin(pi (x + 1) / 2)
+    exp(-0.1 (pi / 2)^2 t)`` at ``(n, 2)`` points ``(t, x)``."""
+    X = np.asarray(X, np.float64)
+    return np.sin(np.pi * (X[:, 1] + 1.0) / 2.0) * np.exp(-0.1 * (np.pi / 2.0) ** 2 * X[:, 0])
+
+
+def ibvp_anchors(n_ic: int, n_bc: int):
+    """Initial-condition anchors at t = 0 and boundary anchors at x = -1
+    and x = 1, with values from u*, float32 (``experiments/large_scale_tpu.py``)."""
+    X_ic = np.stack([np.zeros(n_ic), np.linspace(-1.0, 1.0, n_ic)], axis=-1)
+    t = np.linspace(0.0, 5.0, n_bc)
+    X_bc = np.concatenate([np.stack([t, np.full(n_bc, -1.0)], -1), np.stack([t, np.full(n_bc, 1.0)], -1)])
+    Xa = np.concatenate([X_ic, X_bc]).astype(np.float32)
+    return Xa, u_star(Xa).astype(np.float32)
+
+
+def ibvp_data(n: int, nq: int):
+    """``experiments/large_scale_tpu.py``'s collocation points and queries:
+    seed 0, X drawn as bench.py draws it, then the queries, float32."""
+    rng = np.random.default_rng(0)
+    X = np.stack([rng.uniform(0.0, 5.0, n), rng.uniform(-1.0, 1.0, n)], axis=-1).astype(np.float32)
+    Xq = np.stack([rng.uniform(0.0, 5.0, nq), rng.uniform(-1.0, 1.0, nq)], axis=-1).astype(np.float32)
+    return X, Xq
 
 
 def heat_problem():
@@ -161,6 +248,17 @@ def wendland_specs() -> dict:
         "1d": kernel_term_specs(wendland_prior().cov),
         "2d": kernel_term_specs(apply_operator_to_kernel(D, apply_operator_to_kernel(D, k2, argnum=1), argnum=0)),
     }
+
+
+def row_excess(o, oracle, row_absum, eps):
+    """max_i (|o_i - f64_i| - eps |f64_i|) / (eps sum_j |k_ij v_j|): how far a
+    result is from the f64 product rounded, row by row, in units of the row's
+    rounding scale; a row with no neighbour must be exactly 0 (0/0 reads 0,
+    x/0 inf)."""
+    import torch
+
+    e = ((o.double() - oracle).abs() - eps * oracle.abs()).clamp(min=0)
+    return torch.nan_to_num(e / (eps * row_absum), nan=0.0).max().item()
 
 
 def sync():
@@ -263,11 +361,14 @@ def phase_kernels(specs, k0, device="cuda"):
                     asym = (S - S.T).abs().max().item()
                     check(asym == 0.0, f"K1 {name} ff exactly symmetric on (X, X): max |K - K^T| = {asym}")
 
-        for r in (1, 4):
+        eps32 = torch.finfo(torch.float32).eps
+        for r in R_CHECK:
             vnp = rng.standard_normal((2048, r))
             v64 = torch.tensor(vnp, dtype=torch.float64, device=dev)
             v32 = v64.float()
             oracle = gram_matvec_plain(spec, x0_32, x1_32, v32.double(), "f64")
+            row_absum = oracle_k1.abs() @ v32.double().abs()
+            wide0 = _cuda.launches["gram_matvec_wide"]
             for mode in ("plain", "ff", "f64"):
                 v = v64 if mode == "f64" else v32
                 out = gram_matvec(spec, X0[mode], X1[mode], v, mode)
@@ -283,6 +384,12 @@ def phase_kernels(specs, k0, device="cuda"):
                     e64 = (out.double() - oracle).abs().max().item() / oracle.abs().max().item()
                     check(e64 <= 3e-6, f"K2 {name} r={r} ff vs f64 product: {e64:.3e} rel <= 3e-6 "
                           f"(vs plain ff: {err / sc:.3e})")
+                    e_row = row_excess(out, oracle, row_absum, eps32)
+                    check(e_row <= ROW_BOUND, f"K2 {name} r={r} ff is the f64 product rounded, row by row: "
+                          f"excess {e_row:.3g} eps sum_j|k_ij v_j| <= {ROW_BOUND:g}")
+            wide = _cuda.launches["gram_matvec_wide"] - wide0
+            want = 0 if r in (1, 4) else 3  # one launch per mode on the multi-column route for r >= 48
+            check(wide == want, f"K2 {name} r={r}: {wide} launches of the multi-column route, {want} expected")
     log(f"kernel launches in this phase: {dict(_cuda.launches)}")
 
 
@@ -312,7 +419,6 @@ def phase_banded_kernels(wspecs, device="cuda"):
     dev = torch.device(device)
     rng = np.random.default_rng(3)
     eps32 = torch.finfo(torch.float32).eps
-    row_bound = 1e-3
     for name, spec in wspecs.items():
         scale, terms = spec
         d = len(terms[0][1])
@@ -325,7 +431,7 @@ def phase_banded_kernels(wspecs, device="cuda"):
         mv64 = make_banded_matvec(spec, x0_32, x1_32, mode="f64")
         # The ff entries, for the TPU bodies' f32 sum of hi v and lo v.
         K_hi, K_lo = _eval_block(_collapse_terms(tuple(terms)), x0_32.float(), x1_32.float(), "ff")
-        for r in (1, 4):
+        for r in R_CHECK:
             vnp = rng.standard_normal((4000, r))
             v64 = torch.tensor(vnp, dtype=torch.float64, device=dev)
             v32 = v64.float()
@@ -333,6 +439,7 @@ def phase_banded_kernels(wspecs, device="cuda"):
             absum = row_absum.max().item()
             oracle = mv64.plain(v32.double())
             outs = {}
+            wide0 = _cuda.launches["banded_matvec_wide"]
             for mode in ("plain", "ff", "f64"):
                 dt = torch.float64 if mode == "f64" else torch.float32
                 X0 = torch.tensor(X0np, dtype=dt, device=dev)
@@ -356,8 +463,8 @@ def phase_banded_kernels(wspecs, device="cuda"):
                     e64 = (out.double() - oracle).abs().max().item()
                     check(e64 <= 0.5 * eps * absum, f"{tag} vs f64 product: {e64 / (eps * absum):.3g} "
                           "eps sum|k v| <= 0.5")
-                # An ff right-hand side with a nonzero lo plane.
-                if mode == "ff" and r == 4:
+                # An ff right-hand side with a nonzero lo plane (both routes).
+                if mode == "ff" and r >= 4:
                     lo = (v64 - v32.double()).float()
                     out2 = mv((v32, lo))
                     ref2 = mv64.plain(v32.double() + lo.double())
@@ -365,30 +472,33 @@ def phase_banded_kernels(wspecs, device="cuda"):
                     e2 = (out2.double() - ref2).abs().max().item()
                     check(e2 <= 0.5 * eps * absum, f"{tag} ff pair rhs vs f64 product: "
                           f"{e2 / (eps * absum):.3g} eps sum|k v| <= 0.5")
-
-            def row_excess(o):
-                """max_i (|o_i - f64_i| - eps |f64_i|) / (eps sum_j |k_ij v_j|); a row
-                with no neighbour must be exactly 0 (0/0 reads 0, x/0 inf)."""
-                e = ((o.double() - oracle).abs() - eps32 * oracle.abs()).clamp(min=0)
-                return torch.nan_to_num(e / (eps32 * row_absum), nan=0.0).max().item()
+            wide = _cuda.launches["banded_matvec_wide"] - wide0
+            want = 0 if r in (1, 4) else 4  # the three modes and the ff pair rhs, for r >= 48
+            check(wide == want, f"banded {name} r={r}: {wide} launches of the multi-column route, {want} expected")
 
             tpu = scale * (K_hi @ v32 + K_lo @ v32)
             sync()
             tag = f"banded {name} r={r}"
-            e_ff, e_tpu, e_plain32 = row_excess(outs["ff"]), row_excess(tpu), row_excess(outs["plain"])
+            e_ff = row_excess(outs["ff"], oracle, row_absum, eps32)
+            e_tpu = row_excess(tpu, oracle, row_absum, eps32)
+            e_plain32 = row_excess(outs["plain"], oracle, row_absum, eps32)
             e_tpu_max = (tpu.double() - oracle).abs().max().item() / (eps32 * absum)
-            check(e_ff <= row_bound, f"{tag} ff is the f64 product rounded, row by row: "
-                  f"excess {e_ff:.3g} eps sum_j|k_ij v_j| <= {row_bound:g}")
-            check(e_tpu > row_bound and e_plain32 > row_bound,
+            check(e_ff <= ROW_BOUND, f"{tag} ff is the f64 product rounded, row by row: "
+                  f"excess {e_ff:.3g} eps sum_j|k_ij v_j| <= {ROW_BOUND:g}")
+            check(e_tpu > ROW_BOUND and e_plain32 > ROW_BOUND,
                   f"{tag} f32 sums fail that bound: TPU-style ff sum {e_tpu:.3g}, plain body {e_plain32:.3g} "
-                  f"> {row_bound:g} (the TPU-style sum reads {e_tpu_max:.3g} eps max sum|k v| vs the f64 product)")
+                  f"> {ROW_BOUND:g} (the TPU-style sum reads {e_tpu_max:.3g} eps max sum|k v| vs the f64 product)")
         del absG, K_hi, K_lo
         torch.cuda.empty_cache()
     log(f"kernel launches in this phase: {dict(_cuda.launches)}")
 
 
 def phase_timing(specs, n, nq, rank):
-    """K1 and K2 vs their plain versions at the heat path's shapes, per mode."""
+    """K1 and K2 vs their plain versions at the heat path's shapes, per mode:
+    K2 at N x N with r = 1, 4 (the one-row-per-thread route), 64 (the
+    multi-column route at RW = 64, the anchored variance's block) and 256
+    (RW = 256, the heat variance's block), and on the cross kernel at nq x N
+    with r = 1."""
     import torch
 
     from linpde_gp_tpu_torch.ops.gram import gram, gram_matvec, gram_matvec_plain, gram_plain
@@ -399,6 +509,7 @@ def phase_timing(specs, n, nq, rank):
     X, _, Xq = bench_data(n, nq)
     idx = landmark_indices(n, rank)
     v_np = np.random.default_rng(2).standard_normal(n)
+    V_np = np.random.default_rng(5).standard_normal((n, 256))
     rows = {}
     for mode in ("ff", "f64", "plain"):
         dt = torch.float64 if mode == "f64" else torch.float32
@@ -406,46 +517,64 @@ def phase_timing(specs, n, nq, rank):
         Zd = Xd[idx.to("cuda")].contiguous()
         Qd = torch.tensor(Xq, device="cuda").to(dt)
         v = torch.tensor(v_np, device="cuda").to(dt)
+        V = torch.tensor(V_np, device="cuda").to(dt)
         # The CG hands K2 its direction as an ff pair in mode ff.
         v_main = (v, v * 1e-8) if mode == "ff" else v
+        V_main = (V, V * 1e-8) if mode == "ff" else V
+        V4_main, V64_main = (
+            (V[:, :r].contiguous(), V[:, :r] * 1e-8) if mode == "ff" else V[:, :r].contiguous() for r in (4, 64)
+        )
         # warm-up launches (and cuBLAS/allocator set-up) at small shapes
         gram(terms, Zd[:256], Zd[:256], mode)
         gram_plain(terms, Zd[:256], Zd[:256], mode)
         gram_matvec(spec, Zd[:256], Zd[:256], v[:256], mode)
+        gram_matvec(spec, Zd[:256], Zd[:256], V[:256], mode)
         gram_matvec_plain(spec, Zd[:256], Zd[:256], v[:256], mode)
         sync()
         row = {}
-        for key, fk, fp in (
-            ("gram_zz", lambda: gram(terms, Zd, Zd, mode), lambda: gram_plain(terms, Zd, Zd, mode)),
-            ("gram_xz", lambda: gram(terms, Xd, Zd, mode), lambda: gram_plain(terms, Xd, Zd, mode)),
+        for key, fk, fp, reps in (
+            ("gram_zz", lambda: gram(terms, Zd, Zd, mode), lambda: gram_plain(terms, Zd, Zd, mode), 3),
+            ("gram_xz", lambda: gram(terms, Xd, Zd, mode), lambda: gram_plain(terms, Xd, Zd, mode), 3),
             ("gram_matvec_xx", lambda: gram_matvec(spec, Xd, Xd, v_main, mode),
-             lambda: gram_matvec_plain(spec, Xd, Xd, v_main, mode)),
+             lambda: gram_matvec_plain(spec, Xd, Xd, v_main, mode), 3),
+            # the r <= 4 route at its widest: r = 256 on it took 64 such launches
+            ("gram_matvec_xx_r4", lambda: gram_matvec(spec, Xd, Xd, V4_main, mode),
+             lambda: gram_matvec_plain(spec, Xd, Xd, V4_main, mode), 2),
+            # the multi-column route at the anchored variance's block width
+            ("gram_matvec_xx_r64", lambda: gram_matvec(spec, Xd, Xd, V64_main, mode),
+             lambda: gram_matvec_plain(spec, Xd, Xd, V64_main, mode), 2),
+            # and at the heat variance's
+            ("gram_matvec_xx_r256", lambda: gram_matvec(spec, Xd, Xd, V_main, mode),
+             lambda: gram_matvec_plain(spec, Xd, Xd, V_main, mode), 2),
             # the posterior mean: cross kernel at nq x N
             ("gram_matvec_qx", lambda: gram_matvec(cross, Qd, Xd, v_main, mode),
-             lambda: gram_matvec_plain(cross, Qd, Xd, v_main, mode)),
+             lambda: gram_matvec_plain(cross, Qd, Xd, v_main, mode), 3),
         ):
-            ms, out = timed(fk, reps=3)
+            ms, out = timed(fk, reps=reps)
             pms, ref = timed(fp, reps=1)
             err = (out.double() - ref.double()).abs().max().item()
             sc = ref.abs().max().item()
             del out, ref
             torch.cuda.empty_cache()
             row[key] = {"ms": ms, "plain_ms": pms, "max_abs_err": err, "rel_err": err / sc}
-            log(f"  {mode:5s} {key:15s} kernel {ms:10.3f} ms  plain {pms:10.3f} ms  "
+            log(f"  {mode:5s} {key:19s} kernel {ms:10.3f} ms  plain {pms:10.3f} ms  "
                 f"max|kernel - plain| {err:.3e} ({err / sc:.3e} of max)")
             # K1 entries match bit for bit; K2 sums 1e5 terms in another order
             # than its plain version (f32 in plain mode, ff vs f64 in ff mode).
             bound = {"plain": 1e-4, "ff": 1e-6, "f64": 1e-10}[mode]
             check(np.isfinite(err) and err <= bound * sc, f"{mode} {key} at full shape within {bound:g} of max")
+        r4 = row["gram_matvec_xx_r4"]["ms"]
+        log(f"  {mode:5s} K2 r=256: multi-column route {row['gram_matvec_xx_r256']['ms']:.3f} ms; the r <= 4 route "
+            f"would take 64 launches of r=4: {64 * r4:.1f} ms (an estimate: 64 x the r=4 time)")
         rows[mode] = row
-        del Xd, Zd, Qd, v, v_main
+        del Xd, Zd, Qd, v, v_main, V, V_main, V4_main, V64_main
         torch.cuda.empty_cache()
     return rows
 
 
 def phase_banded_timing(n):
-    """The banded matvec vs its plain version and dense K2 on the Wendland
-    experiment's spec and data at N x N, r = 1, per mode."""
+    """The banded matvec vs its plain version (and at r = 1 dense K2) on the
+    Wendland experiment's spec and data at N x N, r in {1, 4, 256}, per mode."""
     import torch
 
     from linpde_gp_tpu_torch.ops.banded import make_banded_matvec
@@ -453,6 +582,7 @@ def phase_banded_timing(n):
 
     spec = wendland_specs()["1d"]
     X, v_np, _, _ = wendland_data(n, 0)
+    V_np = np.random.default_rng(6).standard_normal((n, 256))
     rows = {}
     for mode in ("ff", "f64", "plain"):
         dt = torch.float64 if mode == "f64" else torch.float32
@@ -476,7 +606,6 @@ def phase_banded_timing(n):
                "rel_err_vs_dense": err_dense / sc, "setup_s": setup_s, "band_tiles": mv.band_tiles,
                "total_tiles": mv.total_tiles, "band_fraction": mv.band_tiles / mv.total_tiles,
                "pair_fraction": mv.pair_fraction}
-        rows[mode] = row
         log(f"  {mode:5s} banded {n}x{n} r=1: kernel {ms:10.3f} ms  plain {pms:10.3f} ms  dense K2 {dms:10.3f} ms  "
             f"band {mv.band_tiles}/{mv.total_tiles} tiles ({100 * row['band_fraction']:.2f} %), pairs "
             f"{100 * mv.pair_fraction:.2f} %; max|kernel - plain| {err:.3e} ({err / sc:.3e} of max), "
@@ -486,7 +615,30 @@ def phase_banded_timing(n):
         bound = {"plain": 1e-4, "ff": 1e-8, "f64": 1e-10}[mode]
         check(np.isfinite(err) and err <= bound * sc, f"{mode} banded at full shape within {bound:g} of max")
         check(np.isfinite(err_dense) and err_dense <= bound * sc, f"{mode} banded vs dense K2 within {bound:g}")
-        del Xd, v, v_main, out, ref, dense, mv
+        del out, ref, dense
+        # At r > 1 some of the 1e5 r entries that round the same f64 value
+        # can land on the other side of a tie after a different summation
+        # order: one f32 ulp, ~2 eps32 of the max at most, in mode ff.
+        bound_r = {"plain": 1e-4, "ff": 2.5e-7, "f64": 1e-10}[mode]
+        for r in (4, 256):
+            V = torch.tensor(V_np[:, :r], device="cuda").to(dt)
+            V_main = (V, V * 1e-8) if mode == "ff" else V
+            mv(V_main)  # warm-up
+            sync()
+            ms_r, out = timed(lambda: mv(V_main), reps=3)
+            pms_r, ref = timed(lambda: mv.plain(V_main), reps=1)
+            sc = ref.abs().max().item()
+            err = (out.double() - ref.double()).abs().max().item()
+            row[f"r{r}"] = {"ms": ms_r, "plain_ms": pms_r, "max_abs_err": err, "rel_err": err / sc}
+            log(f"  {mode:5s} banded {n}x{n} r={r}: kernel {ms_r:10.3f} ms  plain {pms_r:10.3f} ms  "
+                f"max|kernel - plain| {err:.3e} ({err / sc:.3e} of max)")
+            check(np.isfinite(err) and err <= bound_r * sc,
+                  f"{mode} banded r={r} at full shape within {bound_r:g} of max")
+            del V, V_main, out, ref
+        log(f"  {mode:5s} banded r=256: multi-column route {row['r256']['ms']:.3f} ms; the r <= 4 route would take "
+            f"64 launches of r=4: {64 * row['r4']['ms']:.1f} ms (an estimate: 64 x the r=4 time)")
+        rows[mode] = row
+        del Xd, v, v_main, mv
         torch.cuda.empty_cache()
     return rows
 
@@ -569,9 +721,78 @@ def _solve_and_mean(make_reg, Xq):
     return reg, w, mu, dict(construct_s=t_construct, build_s=t_build, solve_s=t_solve, mean_s=t_mean)
 
 
-def run_main_path(specs, k0, mode, n, nq, rank, *, device="cuda", tol=1e-5, maxiter=512, noise_rel=1e-3):
+def _variance(reg, xq, block_sizes, tag, *, positive=True):
+    """``reg.var`` at ``xq`` for each block size: seconds, CG iterations per
+    block, std range; checks finite, ``0 <= var <= prior var`` (``0 <``
+    where ``positive``), and that the partitions agree.  Returns the
+    measurements and the first partition's variance (float64, host)."""
+    import torch
+
+    prior_var = reg.prior.cov(torch.from_numpy(np.asarray(xq, np.float64)).to(reg.device)).cpu()
+    out, first = {}, None
+    for bs in block_sizes:
+        t0 = time.perf_counter()
+        v = reg.var(torch.from_numpy(xq), block_size=bs)
+        sync()
+        secs = time.perf_counter() - t0
+        v = v.double().cpu()
+        lo_ok = bool((v > 0).all()) if positive else bool((v >= 0).all())
+        check(bool(torch.isfinite(v).all()) and v.shape == (xq.shape[0],) and lo_ok
+              and bool((v <= prior_var * (1 + 1e-6)).all()),
+              f"{tag}: var at {xq.shape[0]} queries (block {bs}) finite, {'0 <' if positive else '0 <='} var <= "
+              f"prior var; range [{v.min().item():.4e}, {v.max().item():.4e}]")
+        out[f"block_{bs}"] = dict(seconds=secs, iterations=[it for it, _ in reg.var_info],
+                                  relres=max(rr for _, rr in reg.var_info))
+        if first is None:
+            first = v
+            out.update(var_min=v.min().item(), var_max=v.max().item(),
+                       std_range=[float(np.sqrt(v.min().item())), float(np.sqrt(v.max().item()))])
+        else:
+            rel = ((v - first).abs().max() / first.max()).item()
+            out[f"partition_rel_diff_{block_sizes[0]}_{bs}"] = rel
+            # Each column is solved to relres tol = 1e-5; the CPU tests read
+            # an error of ~0.3 tol relative to max var, the JAX package's TPU
+            # run 1.1e-5 between partitions (RESULTS.md:256).  10 tol.
+            check(rel <= VAR_REL_BOUND, f"{tag}: blocks {block_sizes[0]} and {bs} agree: {rel:.3e} of max var "
+                  f"<= {VAR_REL_BOUND:g}")
+    return out, first
+
+
+def _reference_variance(reg, xq, block_size, tag):
+    """``reg.var`` at ``xq`` in one block at each CG tol of ``REF_TOLS``:
+    the measurements and the last (tightest) variance (float64, host);
+    checks each relres, ``0 < var <= prior var`` and that the two agree
+    within ``REF_AGREE`` of var per query."""
+    import torch
+
+    prior_var = reg.prior.cov(torch.from_numpy(np.asarray(xq, np.float64)).to(reg.device)).cpu()
+    out, refs = {}, []
+    for tol in REF_TOLS:
+        t0 = time.perf_counter()
+        ref = reg.var(torch.from_numpy(xq), block_size=block_size, tol=tol).double().cpu()
+        sync()
+        secs = time.perf_counter() - t0
+        (it, rr), = reg.var_info
+        check(rr <= tol and bool((ref > 0).all()) and bool((ref <= prior_var).all()),
+              f"{tag}: var at tol {tol:g}: relres {rr:.3e}, 0 < var <= prior var, "
+              f"range [{ref.min().item():.4e}, {ref.max().item():.4e}]")
+        out[f"tol_{tol:g}"] = dict(seconds=secs, iterations=it, relres=rr,
+                                   std_range=[ref.min().sqrt().item(), ref.max().sqrt().item()])
+        refs.append(ref)
+    rel = ((refs[0] - refs[1]).abs() / refs[1]).max().item()
+    out["agree"] = rel
+    check(rel <= REF_AGREE, f"{tag}: var at tol {REF_TOLS[0]:g} vs {REF_TOLS[1]:g}: {rel:.3e} of var, per query, "
+          f"<= {REF_AGREE:g}")
+    return out, refs[1]
+
+
+def run_main_path(specs, k0, mode, n, nq, rank, *, device="cuda", tol=1e-5, maxiter=512, noise_rel=1e-3,
+                  var_queries=0):
     """The heat benchmark problem through ``IterativeGPRegressor(prior, X, Y,
-    L=H)``; ``specs``: the specs it must derive (``data/heat_bench_specs.json``)."""
+    L=H)``; ``specs``: the specs it must derive (``data/heat_bench_specs.json``).
+    With ``var_queries``, then ``var`` at the first that many queries with
+    ``block_size=256`` and again with ``128``; the variance is returned under
+    ``"var"`` (a host float64 tensor)."""
     import torch
 
     from linpde_gp_tpu_torch.models.iterative import IterativeGPRegressor
@@ -592,13 +813,26 @@ def run_main_path(specs, k0, mode, n, nq, rank, *, device="cuda", tol=1e-5, maxi
         lambda X64, w64: gram_matvec_plain(reg._obs_spec, X64, X64, w64, "f64"), "heat",
     )
     out = dict(mode=mode, n=n, nq=nq, rank=rank, noise=sigma_sq, **res, **times)
+    var = None
+    if var_queries:
+        out["variance"], var = _variance(reg, Xq[:var_queries], (256, 128), f"heat[{mode}]")
+        s = out["variance"]["std_range"]
+        # The JAX package's TPU run over 2048 queries of this distribution
+        # read std in [0.6735, 0.8021] (RESULTS.md:256); 1 % slack for other queries.
+        check(0.99 * 0.6735 <= s[0] and s[1] <= 1.01 * 0.8021,
+              f"heat[{mode}]: std range [{s[0]:.4f}, {s[1]:.4f}] within the JAX run's [0.6735, 0.8021] +- 1 %")
     log(f"main[heat {mode}] " + json.dumps(out))
+    out["var"] = var
     return out
 
 
-def run_wendland_path(mode, n, nq, rank, *, device="cuda", tol=1e-5, maxiter=512, noise=1e-3):
+def run_wendland_path(mode, n, nq, rank, *, device="cuda", tol=1e-5, maxiter=512, noise=1e-3, var_queries=0):
     """The Wendland experiment's problem through
-    ``IterativeGPRegressor(prior, X, Y)``: banded CG, dense K2 mean."""
+    ``IterativeGPRegressor(prior, X, Y)``: banded CG, dense K2 mean; with
+    ``var_queries``, then ``var`` at the first that many queries with
+    ``block_size=256`` (banded CG at r = 256), in mode f64 also at the CG
+    tols ``REF_TOLS`` (the reference).  The variances are returned under
+    ``"var"`` and ``"var_ref"`` (host float64 tensors, or None)."""
     import torch
 
     from linpde_gp_tpu_torch.models.iterative import IterativeGPRegressor
@@ -620,33 +854,205 @@ def run_wendland_path(mode, n, nq, rank, *, device="cuda", tol=1e-5, maxiter=512
 
     res = _check_solution(reg, w, mu, Xq, mode, tol, noise, true_matvec, "wendland")
     out = dict(mode=mode, n=n, nq=nq, rank=rank, noise=noise, **band, **res, **times)
+    var = ref = None
+    if var_queries:
+        xq = Xq[:var_queries].astype(np.float64)
+        out["variance"], var = _variance(reg, xq, (256,), f"wendland[{mode}]")
+        if mode == "f64":
+            out["variance_ref"], ref = _reference_variance(reg, xq, 256, f"wendland[{mode}]")
     log(f"main[wendland {mode}] " + json.dumps(out))
+    out["var"], out["var_ref"] = var, ref
     return out
 
 
+def run_ibvp_path(mode, n, nq, rank, *, device="cuda", n_ic=96, n_bc=48, tol=1e-5, maxiter=512, noise_rel=1e-3,
+                  anchor_noise=1e-5, var_queries=64):
+    """``experiments/large_scale_tpu.py``'s anchored heat IBVP through
+    ``IterativeGPRegressor(prior, X, 0, L=H, anchor_X=..., anchor_Y=...)``:
+    H u = 0 at N collocation points, u = u* at the IC and BC anchors,
+    jointly by Schur elimination.  Checks finite weights, the solver's
+    relres, the joint true relres of the 2 x 2 system by the float64 plain
+    versions, the RMSE against u* at nq queries, then ``var`` at
+    ``var_queries`` queries (one block), in mode f64 also at the CG tols
+    ``REF_TOLS`` (returned under ``"var"`` and ``"var_ref"``)."""
+    import torch
+
+    from linpde_gp_tpu_torch.models.iterative import IterativeGPRegressor
+    from linpde_gp_tpu_torch.ops.gram import gram_matvec_plain, gram_plain, kernel_term_specs
+    from linpde_gp_tpu_torch.specs import spec_diagonal
+
+    prior, H = heat_problem()
+    X, Xq = ibvp_data(n, nq)
+    Xa, Ya = ibvp_anchors(n_ic, n_bc)
+    noise = noise_rel * spec_diagonal(heat_specs()["obs"])
+    reg, w, mu, times = _solve_and_mean(lambda: IterativeGPRegressor(
+        prior, torch.from_numpy(X), torch.zeros(n), L=H, noise_variance=noise, tol=tol, maxiter=maxiter,
+        precond_rank=rank, mode=mode, device=device, anchor_X=Xa, anchor_Y=Ya, anchor_noise=anchor_noise,
+    ), Xq)
+    tag = f"ibvp[{mode}]"
+    a = reg._anchors
+    aw = reg.anchor_weights
+    iters, relres = reg.solve_info
+    check(bool(torch.isfinite(w).all()) and bool(torch.isfinite(aw).all()), f"{tag}: weights finite")
+    check(relres <= 100 * tol, f"{tag}: solver relres {relres:.3e} <= {100 * tol:g}")
+    # The joint residual of [[A11, W^T], [W, A22]] [aw; w] = [Y1; Y] by the f64
+    # plain versions (A22 = k_HH + sigma^2 I, A11 = k + anchor_noise I).
+    t0 = time.perf_counter()
+    X64, X1 = reg.X.double(), a["X1"].double()
+    w64, aw64, y1 = w.double(), aw.double(), a["Y1"].double()
+    sk, tk = kernel_term_specs(prior.cov)
+    sw, tw = kernel_term_specs(a["k_Lk"])
+    A11 = sk * gram_plain(tk, X1, X1, "f64") + anchor_noise * torch.eye(X1.shape[0], dtype=torch.float64,
+                                                                          device=X1.device)
+    W = sw * gram_plain(tw, X64, X1, "f64")
+    r1 = A11 @ aw64 + W.T @ w64 - y1
+    r2 = W @ aw64 + gram_matvec_plain(reg._obs_spec, X64, X64, w64, "f64") + reg.noise_variance * w64 \
+        - reg.Y.double()
+    joint = (torch.sqrt(r1.square().sum() + r2.square().sum()) /
+             torch.sqrt(y1.square().sum() + reg.Y.double().square().sum())).item()
+    sync()
+    t_check = time.perf_counter() - t0
+    check(joint <= 1e-3, f"{tag}: joint true relres of the 2x2 system (f64 plain versions) {joint:.3e} <= 1e-3")
+    err = mu.double().cpu().numpy() - u_star(Xq)
+    rmse, max_err = float(np.sqrt(np.mean(err**2))), float(np.max(np.abs(err)))
+    check(bool(np.isfinite(err).all()) and rmse <= 4e-4,
+          f"{tag}: RMSE vs u* at {nq} queries {rmse:.3e} <= 4e-4 (the JAX package's TPU run: 1.977e-4); "
+          f"max error {max_err:.3e}")
+    out = dict(mode=mode, n=n, nq=nq, n_anchor=int(Xa.shape[0]), rank=rank, noise=reg.noise_variance,
+               anchor_noise=anchor_noise, iterations=iters, relres=relres, joint_true_relres=joint, rmse=rmse,
+               max_err=max_err, check_s=t_check, **times)
+    var = ref = None
+    if var_queries:
+        out["variance"], var = _variance(reg, Xq[:var_queries], (var_queries,), tag, positive=False)
+        if mode == "f64":
+            out["variance_ref"], ref = _reference_variance(reg, Xq[:var_queries], var_queries, tag)
+    log(f"main[ibvp {mode}] " + json.dumps(out))
+    out["var"], out["var_ref"] = var, ref
+    return out
+
+
+def run_oracle_path(mode, *, n=4096, nq=128, n_anchor=24, device="cuda", rank=512, noise_rel=1e-3,
+                    anchor_noise=1e-5, maxiter=1024):
+    """The heat problem at a size where the dense posterior fits: ``var``
+    (and the mean) at ``nq`` queries, without anchors and with ``n_anchor``
+    initial-condition anchors, against a float64 dense Cholesky posterior
+    on the card, on the same float32-rounded points."""
+    import torch
+
+    from linpde_gp_tpu_torch.models.iterative import IterativeGPRegressor
+    from linpde_gp_tpu_torch.ops.gram import gram_plain, kernel_term_specs
+    from linpde_gp_tpu_torch.ops.transforms import apply_operator_to_kernel
+    from linpde_gp_tpu_torch.specs import spec_diagonal
+
+    prior, H = heat_problem()
+    specs = heat_specs()
+    X, Y, Xq = bench_data(n, nq)
+    Xa, Ya = ibvp_anchors(n_anchor, 0)
+    noise = noise_rel * spec_diagonal(specs["obs"])
+    tol = ORACLE_TOL[mode]
+    dev = torch.device(device)
+    X64, Xq64, Xa64 = (torch.from_numpy(a.astype(np.float64)).to(dev) for a in (X, Xq, Xa))
+
+    def dense(spec, x0, x1):
+        return spec[0] * gram_plain(spec[1], x0, x1, "f64")
+
+    k_spec = kernel_term_specs(prior.cov)
+    kL_spec = kernel_term_specs(apply_operator_to_kernel(H, prior.cov, argnum=0))
+    out = {}
+    for anchored in (False, True):
+        tag = f"oracle[{mode}{' anchored' if anchored else ''}]"
+        kw = dict(anchor_X=Xa, anchor_Y=Ya, anchor_noise=anchor_noise) if anchored else {}
+        t0 = time.perf_counter()
+        reg = IterativeGPRegressor(prior, X, Y, L=H, noise_variance=noise, tol=tol, maxiter=maxiter,
+                                   precond_rank=rank, mode=mode, device=device, **kw)
+        mu = reg.mean(torch.from_numpy(Xq)).double()
+        var = reg.var(torch.from_numpy(Xq), block_size=nq).double()
+        sync()
+        secs = time.perf_counter() - t0
+        G = dense(specs["obs"], X64, X64) + noise * torch.eye(n, dtype=torch.float64, device=dev)
+        Kq = dense(specs["cross"], Xq64, X64)
+        y = torch.from_numpy(Y.astype(np.float64)).to(dev)
+        if anchored:
+            WL = dense(kL_spec, X64, Xa64)
+            A11 = dense(k_spec, Xa64, Xa64) + anchor_noise * torch.eye(n_anchor, dtype=torch.float64, device=dev)
+            G = torch.cat([torch.cat([A11, WL.T], 1), torch.cat([WL, G], 1)], 0)
+            Kq = torch.cat([dense(k_spec, Xq64, Xa64), Kq], 1)
+            y = torch.cat([torch.from_numpy(Ya.astype(np.float64)).to(dev), y])
+        C = torch.linalg.cholesky(G)
+        m_ref = Kq @ torch.cholesky_solve(y[:, None], C)[:, 0]
+        v_ref = prior.cov(Xq64) - torch.sum(Kq * torch.cholesky_solve(Kq.T, C).T, 1)
+        e_var = ((var - v_ref).abs().max() / v_ref.max()).item()
+        e_mean = ((mu - m_ref).abs().max() / m_ref.abs().max()).item()
+        sync()
+        bound = ORACLE_VAR_BOUND[mode]
+        check(bool(torch.isfinite(var).all()) and e_var <= bound,
+              f"{tag}: var at {nq} queries vs the f64 dense posterior: {e_var:.3e} of max var <= {bound:g} "
+              f"(mean: {e_mean:.3e} of max |mean|)")
+        out[tag] = dict(n=n, nq=nq, tol=tol, seconds=secs, solve=reg.solve_info, var_blocks=reg.var_info,
+                        var_rel_err=e_var, mean_rel_err=e_mean, var_range=[v_ref.min().item(), v_ref.max().item()])
+        log(f"main[{tag}] " + json.dumps(out[tag]))
+    return out
+
+
+def check_variances(res) -> None:
+    """The variances of the heat, Wendland and IBVP runs (``res[path,
+    mode]``): heat ff vs f64 (checked); Wendland and IBVP, each mode's
+    tol-1e-5 variance vs the f64 reference (logged).  A missing
+    run fails."""
+
+    def var(path, mode, key="var"):
+        v = res.get((path, mode), {}).get(key)
+        check(v is not None, f"{path}[{mode}] {key} was computed")
+        return v
+
+    ff, f64 = var("heat", "ff"), var("heat", "f64")
+    if ff is not None and f64 is not None:
+        rel = ((ff - f64).abs().max() / f64.max()).item()
+        check(rel <= VAR_REL_BOUND, f"heat var: ff vs f64 {rel:.3e} of max var <= {VAR_REL_BOUND:g}")
+    for path in ("wendland", "ibvp"):
+        ref = var(path, "f64", "var_ref")
+        for mode in ("ff", "f64"):
+            v = var(path, mode)
+            if v is not None and ref is not None:
+                rel = ((v - ref).abs() / ref).max().item()
+                log(f"  {path}[{mode}] var at tol 1e-5 vs the f64 tol-{REF_TOLS[1]:g} reference: {rel:.3e} of var, "
+                    "per query (not gated)")
+
+
 def phase_main(specs, k0, n, nq, rank) -> dict:
-    """Both paths in modes ff and f64, the launch counts set to 0 before
-    each run and read after; returns the launches summed over the runs."""
+    """Every path, each run with the launch counts set to 0 before it and
+    read after: heat (mean, then var), Wendland (mean, then var) and the
+    anchored IBVP in modes ff and f64, then the small dense oracle in all
+    three modes.  Returns the launches summed over the runs."""
     from linpde_gp_tpu_torch.ops import _cuda
 
-    needed = {"heat": ("gram", "gram_matvec"), "wendland": ("gram", "banded_matvec", "gram_matvec")}
+    dense_paths = ("gram", "gram_matvec", "gram_matvec_wide")
+    needed = {"heat": dense_paths, "ibvp": dense_paths, "oracle": dense_paths,
+              "wendland": ("gram", "banded_matvec", "gram_matvec", "banded_matvec_wide")}
+    runs = [(path, mode) for path in ("heat", "wendland", "ibvp") for mode in ("ff", "f64")]
+    runs += [("oracle", mode) for mode in ("plain", "ff", "f64")]
     total = {name: 0 for name in KERNELS}
-    for path in ("heat", "wendland"):
-        for mode in ("ff", "f64"):
-            _cuda.reset_launches()
-            try:
-                if path == "heat":
-                    run_main_path(specs, k0, mode, n, nq, rank)
-                else:
-                    run_wendland_path(mode, n, nq, WENDLAND_RANK)
-            except Exception as exc:  # noqa: BLE001 - report, go on with the next run, fail at the end
-                traceback.print_exc()
-                failures.append(f"main[{path} {mode}]: {type(exc).__name__}: {exc}")
-            per = dict(_cuda.launches)
-            for name in total:
-                total[name] += per[name]
-            log(f"main[{path} {mode}] launches {per}")
-            check(all(per[k] > 0 for k in needed[path]), f"main[{path} {mode}] launched {needed[path]}: {per}")
+    res = {}
+    for path, mode in runs:
+        _cuda.reset_launches()
+        try:
+            if path == "heat":
+                res[path, mode] = run_main_path(specs, k0, mode, n, nq, rank, var_queries=VAR_QUERIES)
+            elif path == "wendland":
+                res[path, mode] = run_wendland_path(mode, n, nq, WENDLAND_RANK, var_queries=VAR_QUERIES)
+            elif path == "ibvp":
+                res[path, mode] = run_ibvp_path(mode, n, nq, IBVP_RANK, var_queries=IBVP_VAR_QUERIES)
+            else:
+                run_oracle_path(mode)
+        except Exception as exc:  # noqa: BLE001 - report, go on with the next run, fail at the end
+            traceback.print_exc()
+            failures.append(f"main[{path} {mode}]: {type(exc).__name__}: {exc}")
+        per = dict(_cuda.launches)
+        for name in total:
+            total[name] += per[name]
+        log(f"main[{path} {mode}] launches {per}")
+        check(all(per[k] > 0 for k in needed[path]), f"main[{path} {mode}] launched {needed[path]}: {per}")
+    check_variances(res)
     for name in KERNELS:
         check(total[name] > 0, f"main paths launched {name} {total[name]} times")
     return total
@@ -712,12 +1118,22 @@ def main(argv=None) -> int:
             ff_row = (timing.get("ff") or {}).get(key) or {}
         elif name == "gram_matvec":
             key, shape = "gram_matvec_xx", f"{n}x{n}, r=1"
-            modes = {m: {"x_x": row.get(key), "q_x": row.get("gram_matvec_qx")} for m, row in timing.items()}
+            modes = {m: {"x_x": row.get(key), "x_x_r4": row.get("gram_matvec_xx_r4"), "q_x": row.get("gram_matvec_qx")}
+                     for m, row in timing.items()}
             ff_row = (timing.get("ff") or {}).get(key) or {}
-        else:
+        elif name == "gram_matvec_wide":
+            key, shape = "gram_matvec_xx_r256", f"{n}x{n}, r=256"
+            modes = {m: {"x_x_r256": row.get(key), "x_x_r64": row.get("gram_matvec_xx_r64")}
+                     for m, row in timing.items()}
+            ff_row = (timing.get("ff") or {}).get(key) or {}
+        elif name == "banded_matvec":
             shape = f"{n}x{n}, r=1, Wendland l=0.05"
-            modes = banded_timing
+            modes = {m: {k: v for k, v in row.items() if k != "r256"} for m, row in banded_timing.items()}
             ff_row = banded_timing.get("ff") or {}
+        else:
+            shape = f"{n}x{n}, r=256, Wendland l=0.05"
+            modes = {m: {"r256": row.get("r256")} for m, row in banded_timing.items()}
+            ff_row = (banded_timing.get("ff") or {}).get("r256") or {}
         entries.append({
             "name": name, "label": label, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches.get(name, 0), "max_abs_err": ff_row.get("max_abs_err"),

@@ -1,5 +1,7 @@
-// Pair evaluation of collapsed sum-of-products specs, shared by the kernels
-// of gram.cu (K1, K2) and banded.cu (the banded matvec).
+// Pair evaluation of collapsed sum-of-products specs and the two row walks
+// of the Gram matvec (matvec_rows for r <= 4 right-hand-side columns,
+// matmat_rows above), shared by the kernels of gram.cu (K1, K2) and banded.cu
+// (the banded matvec).
 //
 // A spec is the collapsed groups of ops/gram.py::_collapse_terms: per pair
 // and input dimension a difference d, per distinct (dim, kind, scale) a
@@ -105,6 +107,11 @@ struct PlainArith {
   static __device__ __forceinline__ void acc_zero(Acc& a) { a = T(0); }
   static __device__ __forceinline__ void combine(Acc& a, const Part& p) { a += p; }
   static __device__ __forceinline__ T finish(const Acc& a) { return a; }
+
+  // The multi-column route (matmat_rows) multiplies staged Gram tiles in T.
+  using Prod = T;
+  static __device__ __forceinline__ Prod prod_of(Val g) { return g; }
+  static __device__ __forceinline__ Prod prod_rhs(T v, T /*v_lo*/) { return v; }
 };
 
 // The float-float body ("ff" mode, the JAX package's compensated=True).
@@ -155,6 +162,13 @@ struct FFArith {
   static __device__ __forceinline__ void acc_zero(Acc& a) { a = {0.0f, 0.0f}; }
   static __device__ __forceinline__ void combine(Acc& a, const Part& p) { a = ff_add(a, p); }
   static __device__ __forceinline__ float finish(const Acc& a) { return __fadd_rn(a.hi, a.lo); }
+
+  // The multi-column route forms the product and the sum in float64 from
+  // hi + lo and v + v_lo (exact to ~eps64): 2 FP64 flops a pair and column
+  // against ~20 FP32 flops in ff, and the output is the f64 product rounded.
+  using Prod = double;
+  static __device__ __forceinline__ Prod prod_of(Val g) { return static_cast<double>(g.hi) + g.lo; }
+  static __device__ __forceinline__ Prod prod_rhs(float v, float v_lo) { return static_cast<double>(v) + v_lo; }
 };
 
 // -- pair evaluation -------------------------------------------------------------
@@ -314,6 +328,143 @@ __device__ __forceinline__ void matvec_rows(const GramSpec& s, const typename A:
 template <class A, int ND, int RC>
 constexpr size_t matvec_smem_bytes(int tile) {
   return sizeof(typename A::Real) * static_cast<size_t>(tile) * (ND + 2 * RC);
+}
+
+// -- one block of rows, many columns: the multi-column route ------------------------
+
+// matvec_rows evaluates every pair once per RC <= 4 right-hand-side columns,
+// so at r = 256 it evaluates each pair 64 times.  The TPU bodies
+// (pallas_gram.py:348-389, :626-660) evaluate each Gram tile once and
+// multiply it by the whole (tile, r) panel; matmat_rows does the same per
+// block of RW in {64, 128, 256} columns, so a pair is evaluated ceil(r / RW)
+// times, once for r <= 256.
+//
+// What bounds it on the H100: at RW = 256 the product is 512 flops a pair
+// (in FP64 for modes f64 and ff, FP32 for plain) against ~60 (f64) to ~800
+// (ff, FP32) for the evaluation, so FP64 FMA throughput, not the evaluation.
+constexpr int kMatmatThreads = 256;  // 8 warps
+constexpr int kMatmatRows = 32;      // output rows per block
+constexpr int kMatmatDepth = 32;     // Gram columns (V rows) per tile
+
+__device__ __forceinline__ float fma_of(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+__device__ __forceinline__ double fma_of(double a, double b, double c) { return __fma_rn(a, b, c); }
+
+template <class A, int ND, int RW>
+constexpr size_t matmat_smem_bytes() {
+  return sizeof(typename A::Prod) * static_cast<size_t>(kMatmatDepth) * (RW + kMatmatRows) +
+         sizeof(typename A::Real) * static_cast<size_t>(kMatmatDepth) * ND;
+}
+
+// Dynamic shared memory above 48 KB must be allowed per kernel.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+}
+
+// out[i, c0:c0+RW] = sum_{j in [j_begin, j_end)} k(x0_i, x1_j) v[j, c0:c0+RW]
+// for the kMatmatRows rows from blockIdx.x * kMatmatRows, c0 = blockIdx.y * RW,
+// launched with kMatmatThreads threads.  Per tile of kMatmatDepth columns the
+// block stages the tile's X1 coordinates and V's (depth x RW) panel (as
+// A::Prod, the lo plane of an ff right-hand side folded in), evaluates the
+// tile's (rows x depth) pairs once each through eval_pair into shared memory
+// (as A::Prod: hi + lo in float64 for ff), and each thread accumulates an
+// 8 x RW/64 register micro-tile of the output from the two with explicit
+// FMAs.  Warp w owns rows (w % 4) * 8 + [0, 8) and columns (w / 4) * RW/2 +
+// lane + 32 j: Gram reads are warp broadcasts; V reads and output stores are
+// 32 consecutive elements.  No atomics; ragged edges are masked.  Every thread
+// of the block must call this with the same column range.
+template <class A, int ND, int RW>
+__device__ __forceinline__ void matmat_rows(const GramSpec& s, const typename A::Real* __restrict__ x0t,
+                                            const typename A::Real* __restrict__ x1t,
+                                            const typename A::Real* __restrict__ v,
+                                            const typename A::Real* __restrict__ v_lo,
+                                            typename A::Real* __restrict__ out, int n0, int n1, int r, int j_begin,
+                                            int j_end) {
+  using T = typename A::Real;
+  using P = typename A::Prod;
+  constexpr int T0 = kMatmatRows, T1 = kMatmatDepth, TN = RW / 64;
+  static_assert(RW % 64 == 0 && T0 == 32 && kMatmatThreads == 256, "warp layout assumes these sizes");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  P* sV = reinterpret_cast<P*>(smem_raw);      // [T1][RW]
+  P* sG = sV + T1 * RW;                        // [T1][T0]: rows fastest
+  T* sx = reinterpret_cast<T*>(sG + T1 * T0);  // [ND][T1]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int row0 = blockIdx.x * T0;
+  const int c0 = blockIdx.y * RW;
+
+  // Evaluation: this thread's row is row0 + lane, its columns warp + 8 q.
+  T a[ND];
+  const int er = row0 + lane;
+#pragma unroll
+  for (int k = 0; k < ND; ++k) a[k] = er < n0 ? x0t[static_cast<size_t>(k) * n0 + er] : T(0);
+
+  // Product: rows pr + [0, 8), columns pc + 32 j.
+  const int pr = (warp & 3) * 8;
+  const int pc = (warp >> 2) * (RW / 2) + lane;
+  P acc[8][TN];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = P(0);
+  }
+
+  for (int j0 = j_begin; j0 < j_end; j0 += T1) {
+    const int jn = min(T1, j_end - j0);
+    __syncthreads();  // the previous tile is consumed
+    if (tid < jn) {
+#pragma unroll
+      for (int dd = 0; dd < ND; ++dd) sx[dd * T1 + tid] = x1t[static_cast<size_t>(dd) * n1 + j0 + tid];
+    }
+    for (int e = tid; e < T1 * RW; e += kMatmatThreads) {
+      const int k = e / RW, c = e % RW;
+      P val = P(0);
+      if (k < jn && c0 + c < r) {
+        const size_t at = static_cast<size_t>(j0 + k) * r + c0 + c;
+        val = A::prod_rhs(v[at], v_lo != nullptr ? v_lo[at] : T(0));
+      }
+      sV[e] = val;
+    }
+    __syncthreads();
+#pragma unroll 1
+    for (int q = 0; q < T1 / 8; ++q) {
+      const int k = warp + 8 * q;
+      P g = P(0);
+      if (k < jn) {
+        T b[ND];
+#pragma unroll
+        for (int dd = 0; dd < ND; ++dd) b[dd] = sx[dd * T1 + k];
+        g = A::prod_of(eval_pair<A, ND>(s, a, b));
+      }
+      sG[k * T0 + lane] = g;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int k = 0; k < T1; ++k) {
+      P g[8], w[TN];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) g[i] = sG[k * T0 + pr + i];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) w[j] = sV[k * RW + pc + 32 * j];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fma_of(g[i], w[j], acc[i][j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = row0 + pr + i;
+    if (row >= n0) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int col = c0 + pc + 32 * j;
+      if (col < r) out[static_cast<size_t>(row) * r + col] = static_cast<T>(acc[i][j]);
+    }
+  }
 }
 
 }  // namespace lgt

@@ -9,14 +9,22 @@ the floored all-device Nyström build whose kernel blocks come from K1
 
 The regressor takes a prior and an optional linear operator ``L``, as the
 JAX package's does, and derives the observation kernel ``L k L*`` and the
-cross kernel ``L k`` as ``(scale, terms)`` specs through the symbolic
+cross kernel ``k L*`` as ``(scale, terms)`` specs through the symbolic
 layer (``ops/transforms``, ``ops/gram.kernel_term_specs``);
 :meth:`IterativeGPRegressor.from_specs` takes the two specs directly.  A
 compactly supported observation kernel (Wendland along dimension 0)
 routes the CG matvec through the banded kernel (``ops/banded.py``)
 whenever its band skips column tiles; the mean stays on dense K2, as in
-the JAX package.  The prior mean is zero.  Anchors, grid mode and the
-variance come with later slices.
+the JAX package.
+
+A small second batch of point observations ``u(X1) + eps`` (initial and
+boundary values: the anchors) is conditioned jointly with the operator
+batch by block elimination: CG runs on the Schur complement ``S = A22 -
+W A11^{-1} W^T`` with ``A22 = L k L* + sigma^2 I``, ``W = (L k)(X, X1)``
+and ``A11 = k(X1, X1) + anchor_noise I``.  The posterior variance solves
+blocks of query columns by blocked ff CG (``pcg_block_ff``), one shared
+K2 (or banded) launch of the multi-column route per iteration.  The
+prior mean is zero; grid mode comes with a later slice.
 """
 
 from __future__ import annotations
@@ -25,8 +33,9 @@ import torch
 
 from ..config import mode_dtype, resolve_device, resolve_mode
 from ..ops.banded import compact_support_radius, make_banded_matvec
-from ..ops.gram import gram, gram_matvec, kernel_term_specs
-from ..ops.linalg.pcg import landmark_indices, nystrom_preconditioner_device, pcg_ff
+from ..ops.gram import gram, gram_matrix, gram_matvec, kernel_term_specs
+from ..ops.linalg.chol import cho_solve, cholesky
+from ..ops.linalg.pcg import landmark_indices, nystrom_preconditioner_device, pcg_block_ff, pcg_ff
 from ..ops.transforms.dispatch import apply_operator_to_kernel
 from .functions.base import Zero
 from .gp import GaussianProcess
@@ -34,7 +43,7 @@ from .gp import GaussianProcess
 
 class IterativeGPRegressor:
     """Condition a zero-mean scalar GP on one operator-observation set,
-    gram-free.
+    gram-free, optionally jointly with a small anchor batch.
 
     Parameters
     ----------
@@ -54,10 +63,16 @@ class IterativeGPRegressor:
         1,024 observations and ``min(512, n // 4)`` above; 0 disables it.
     mode:
         ``"plain"``, ``"ff"`` or ``"f64"`` (``config.py``); sets the dtype
-        of every tensor the regressor holds.
+        of the operator batch's tensors.
     device:
         Where ``X``, ``Y`` and all solver state live; CUDA runs the
         kernels, CPU their plain versions.
+    anchor_X, anchor_Y, anchor_noise:
+        Optional ``(n1,) + input_shape`` points and ``(n1,)`` values of
+        ``u(x) + eps`` with variance ``anchor_noise``, conditioned jointly.
+        Modes ff and f64 hold the anchor blocks (``A11``'s factor, ``W``
+        and the Schur correction) in float64, evaluated by the kernels in
+        mode f64; plain mode holds them in float32.
     """
 
     def __init__(
@@ -73,6 +88,9 @@ class IterativeGPRegressor:
         precond_rank: int | str = "auto",
         mode: str | None = None,
         device=None,
+        anchor_X=None,
+        anchor_Y=None,
+        anchor_noise: float = 1e-8,
     ):
         if prior.output_shape != ():
             raise ValueError("IterativeGPRegressor supports scalar outputs.")
@@ -92,7 +110,14 @@ class IterativeGPRegressor:
         X = torch.as_tensor(X).reshape((-1,) + tuple(prior.input_shape))
         self.prior = prior
         self.L = L
+        self._k_cross = k_cross
         self._setup(obs_spec, cross_spec, X, Y, noise_variance, tol, maxiter, precond_rank, mode, device)
+        if anchor_X is not None:
+            if anchor_Y is None:
+                raise ValueError("anchor_X needs anchor_Y")
+            # W[i, j] = Cov(L u(X_i), u(X1_j)) = (L k)(X_i, X1_j).
+            k_Lk = apply_operator_to_kernel(L, k, argnum=0) if L is not None else k
+            self._setup_anchors(k_Lk, anchor_X, anchor_Y, anchor_noise)
 
     @classmethod
     def from_specs(
@@ -110,12 +135,13 @@ class IterativeGPRegressor:
         device=None,
     ) -> "IterativeGPRegressor":
         """A regressor for given ``(scale, terms)`` specs of the
-        observation kernel ``L k L*`` and the cross kernel ``L k``, with
+        observation kernel ``L k L*`` and the cross kernel ``k L*``, with
         ``X`` as ``(n, d)`` points; the other parameters as the
-        constructor's."""
+        constructor's.  It has no prior, so no anchors and no variance."""
         self = cls.__new__(cls)
         self.prior = None
         self.L = None
+        self._k_cross = None
         self._setup(obs_spec, cross_spec, X, Y, noise_variance, tol, maxiter, precond_rank, mode, device)
         return self
 
@@ -144,15 +170,66 @@ class IterativeGPRegressor:
             precond_rank = min(512, n // 4) if n >= 1024 else 0
         self.precond_rank = int(precond_rank)
         self._precond = None
+        self._anchors = None
         self._weights = None
+        self._anchor_weights = None
         self._solve_info = None
+        self._var_info = None
+
+    # -- the anchor batch (iterative.py:255-279 of the JAX package) ------------
+    @property
+    def _anchor_mode(self) -> str:
+        """The mode of the anchor blocks: f64 unless the regressor is plain."""
+        return "plain" if self.mode == "plain" else "f64"
+
+    def _setup_anchors(self, k_Lk, anchor_X, anchor_Y, anchor_noise):
+        dt = mode_dtype(self._anchor_mode)
+        X1 = torch.as_tensor(anchor_X).reshape((-1,) + tuple(self.prior.input_shape))
+        X1 = X1.reshape(X1.shape[0], -1).to(device=self.device, dtype=dt).contiguous()
+        A11 = gram_matrix(self.prior.cov, X1, X1, self._anchor_mode)
+        A11 = A11 + float(anchor_noise) * torch.eye(X1.shape[0], dtype=dt, device=self.device)
+        self._anchors = dict(
+            X1=X1,
+            Y1=torch.as_tensor(anchor_Y).reshape(-1).to(device=self.device, dtype=dt),
+            k_Lk=k_Lk,
+            noise=float(anchor_noise),
+            chol1=cholesky(A11, jitter=0.0),
+            W=gram_matrix(k_Lk, self.X.to(dt), X1, self._anchor_mode),  # (n, n1)
+        )
+
+    # -- checkpoint / resume (utils/serialization.py) ------------------------------
+    # The solved state and the geometry pickle; the banded schedule is
+    # dropped and rebuilt on load, on the device the tensors come back on.
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        state["_had_banded"] = self._banded is not None
+        state["_banded"] = None
+        return state
+
+    def __setstate__(self, state):
+        had_banded = state.pop("_had_banded", False)
+        self.__dict__.update(state)
+        self.device = self.X.device
+        if had_banded:
+            self._banded = make_banded_matvec(self._obs_spec, self.X, self.X, mode=self.mode)
 
     # ------------------------------------------------------------------
     def _precond_block_fn(self, x0, x1):
-        """Observation-kernel block through K1 for the Nyström build."""
+        """Observation-kernel block through K1 for the Nyström build; with
+        anchors, the Schur operator's block ``k_LL(x0, x1) - U0 A11^{-1}
+        U1^T`` (``iterative.py:378-418``), which is itself a PSD kernel:
+        a preconditioner of ``A22`` alone leaves ~n1 directions badly
+        mapped."""
         scale, terms = self._obs_spec
         out = gram(terms, x0, x1, self.mode)
-        return scale * out if scale != 1.0 else out
+        out = scale * out if scale != 1.0 else out
+        a = self._anchors
+        if a is not None:
+            dt = a["W"].dtype
+            U0 = gram_matrix(a["k_Lk"], x0.to(dt), a["X1"], self._anchor_mode)
+            U1 = gram_matrix(a["k_Lk"], x1.to(dt), a["X1"], self._anchor_mode)
+            out = out.to(dt) - U0 @ cho_solve(a["chol1"], U1.T)
+        return out
 
     def _preconditioner(self):
         """Lazily built Nyström preconditioner (None if rank 0).
@@ -172,18 +249,33 @@ class IterativeGPRegressor:
         return self._precond
 
     def _gram_matvec_raw(self, v_ff) -> torch.Tensor:
-        """Gram matvec of an ff pair WITHOUT the noise shift (pcg_ff
-        applies sigma^2 itself, in float-float), banded where routed.
-        Mode ff feeds both planes to the kernel; the other modes read the
-        hi plane."""
+        """Gram matvec of an ff pair (``(n,)`` or ``(n, r)`` planes) WITHOUT
+        the noise shift (the CG applies sigma^2 itself, in float-float),
+        banded where routed.  Mode ff feeds both planes to the kernel; the
+        other modes read the hi plane."""
         v = v_ff if self.mode == "ff" else v_ff[0]
         if self._banded is not None:
             return self._banded(v)
         return gram_matvec(self._obs_spec, self.X, self.X, v, self.mode)
 
+    def _cg_matvec(self, v_ff) -> torch.Tensor:
+        """The CG operator without the noise shift: the Gram matvec, minus
+        the Schur correction ``W A11^{-1} W^T v`` with anchors
+        (``iterative.py:343-351``).  The correction is formed and
+        subtracted in the anchor blocks' dtype (float64 in modes ff and
+        f64) before any rounding, since it can cancel against ``A22 v``;
+        the CG takes the float64 result as an ff pair."""
+        out = self._gram_matvec_raw(v_ff)
+        a = self._anchors
+        if a is None:
+            return out
+        dt = a["W"].dtype
+        v = v_ff[0].to(dt) + v_ff[1].to(dt)
+        return out.to(dt) - a["W"] @ cho_solve(a["chol1"], a["W"].T @ v)
+
     def _solve_device_cg(self, rhs: torch.Tensor):
         res = pcg_ff(
-            self._gram_matvec_raw,
+            self._cg_matvec,
             self._preconditioner(),
             rhs,
             self.noise_variance,
@@ -198,35 +290,125 @@ class IterativeGPRegressor:
         """``(iterations, relative_residual)`` of the most recent solve."""
         return self._solve_info
 
-    def refit(self, Y) -> "IterativeGPRegressor":
-        """Re-condition on new observation values, reusing the Nyström
-        preconditioner and the band schedule (they depend only on the
-        geometry)."""
+    @property
+    def var_info(self):
+        """``[(iterations, relative_residual), ...]`` of the last
+        :meth:`var` call's query blocks (the residual: its worst column)."""
+        return self._var_info
+
+    def refit(self, Y, anchor_Y=None) -> "IterativeGPRegressor":
+        """Re-condition on new observation values (and new anchor values),
+        reusing the Nyström preconditioner, the anchor factor and the band
+        schedule (they depend only on the geometry)."""
         self.Y = torch.as_tensor(Y).reshape(-1).to(device=self.device, dtype=self.X.dtype)
+        if anchor_Y is not None:
+            if self._anchors is None:
+                raise ValueError("the regressor was built without anchors")
+            Y1 = self._anchors["Y1"]
+            self._anchors["Y1"] = torch.as_tensor(anchor_Y).reshape(-1).to(Y1)
         self._weights = None
+        self._anchor_weights = None
         self._solve_info = None
         return self
 
     def _weights_ff(self):
-        """The solved weights as the CG's ff pair ``(hi, lo)``."""
+        """The solved weights as the CG's ff pair ``(hi, lo)``; with anchors
+        also the anchor weights (``iterative.py:515-529``)."""
         if self._weights is None:
-            self._weights = self._solve_device_cg(self.Y)
+            a = self._anchors
+            if a is None:
+                self._weights = self._solve_device_cg(self.Y)
+            else:
+                dt = a["W"].dtype
+                t1 = cho_solve(a["chol1"], a["Y1"])
+                rhs = (self.Y.to(dt) - a["W"] @ t1).to(self.Y.dtype)
+                self._weights = self._solve_device_cg(rhs)
+                w = self._weights[0].to(dt) + self._weights[1].to(dt)
+                self._anchor_weights = cho_solve(a["chol1"], a["Y1"] - a["W"].T @ w)
         return self._weights
 
     @property
     def representer_weights(self) -> torch.Tensor:
-        """The weights ``(K + sigma^2 I)^{-1} Y``.  Mode ff returns them in
-        float64 (``hi + lo`` of the ff pair): rounding to float32 alone
-        costs a 1.6e-3 true relative residual at N = 1e5, noise 1e-3
-        (PERF.md).  The other modes return the mode's dtype."""
+        """The weights ``S^{-1} (Y - W A11^{-1} Y1)`` (``(K + sigma^2 I)^{-1}
+        Y`` without anchors).  Mode ff returns them in float64 (``hi + lo``
+        of the ff pair): rounding to float32 alone costs a 1.6e-3 true
+        relative residual at N = 1e5, noise 1e-3 (PERF.md).  The other
+        modes return the mode's dtype."""
         hi, lo = self._weights_ff()
         return hi.double() + lo.double() if self.mode == "ff" else hi
+
+    @property
+    def anchor_weights(self) -> torch.Tensor | None:
+        """The anchor batch's weights ``A11^{-1} (Y1 - W^T w)`` in the anchor
+        blocks' dtype, or ``None`` without anchors."""
+        self._weights_ff()
+        return self._anchor_weights
+
+    def _queries(self, x) -> torch.Tensor:
+        x = torch.as_tensor(x)
+        return x.reshape(x.shape[0], -1).to(device=self.device, dtype=self.X.dtype)
 
     def mean(self, x) -> torch.Tensor:
         """Posterior mean at ``(nq,) + input_shape`` query points (or
         ``(nq, d)`` for a regressor built from specs), on the regressor's
-        device, in the mode's dtype."""
-        x = torch.as_tensor(x)
-        xq = x.reshape(x.shape[0], -1).to(device=self.device, dtype=self.X.dtype)
+        device, in the mode's dtype; with anchors ``+ k(xq, X1) @
+        anchor_weights`` (``iterative.py:547-551``), added in the anchor
+        blocks' dtype."""
+        xq = self._queries(x)
         w = self._weights_ff()
-        return gram_matvec(self._cross_spec, xq, self.X, w if self.mode == "ff" else w[0], self.mode)
+        mu = gram_matvec(self._cross_spec, xq, self.X, w if self.mode == "ff" else w[0], self.mode)
+        a = self._anchors
+        if a is None:
+            return mu
+        dt = a["W"].dtype
+        k1 = gram_matrix(self.prior.cov, xq.to(dt), a["X1"], self._anchor_mode)
+        return (mu.to(dt) + k1 @ self._anchor_weights).to(mu.dtype)
+
+    def var(self, x, *, block_size: int = 256, tol: float | None = None) -> torch.Tensor:
+        """Posterior variance at ``(nq,) + input_shape`` query points
+        (``iterative.py:555-696``, the device branch): per block of
+        ``block_size`` queries, ``kxX = (k L*)(xq, X)`` from K1, blocked ff
+        CG on the ``(n, block)`` right-hand side through one shared K2 (or
+        banded) launch per iteration, and the quadratic form ``U2 . S2``
+        (``+ U1 . Z1`` with anchors, ``U1 = k(X1, xq)``); the result is
+        ``max(prior_var - update, 0)`` with ``prior_var = k(xq, xq)``.
+
+        Modes ff and f64 form the quadratic form and the subtraction in
+        float64 and return float64 (ff, as :attr:`representer_weights`
+        does); plain mode returns float32.  ``tol``: the CG tolerance of
+        the variance solves (``None``: the regressor's); it is relative to
+        each right-hand side, whose quadratic form can exceed the variance
+        by orders of magnitude where the data pin the posterior down.
+        :attr:`var_info` holds each block's ``(iterations,
+        relative_residual)``."""
+        if self.prior is None:
+            raise ValueError("var needs the prior covariance; a regressor built by from_specs has none")
+        xq = self._queries(x)
+        a = self._anchors
+        dt = torch.float32 if self.mode == "plain" else torch.float64
+        M = self._preconditioner()
+        updates, info = [], []
+        for s in range(0, xq.shape[0], int(block_size)):
+            xb = xq[s:s + int(block_size)]
+            U2 = gram_matrix(self._k_cross, xb, self.X, self.mode).T.contiguous()  # (n, b)
+            rhs = U2
+            if a is not None:
+                U1 = gram_matrix(self.prior.cov, a["X1"], xb.to(dt), self._anchor_mode)  # (n1, b)
+                T1 = cho_solve(a["chol1"], U1)
+                rhs = (U2.to(dt) - a["W"] @ T1).to(U2.dtype)
+            res = pcg_block_ff(self._cg_matvec, M, rhs, self.noise_variance, tol=self.tol if tol is None else tol,
+                               maxiter=self.maxiter)
+            info.append((res.iterations, res.relative_residual))
+            S2 = res.x.to(dt) + res.x_lo.to(dt)
+            update = torch.sum(U2.to(dt) * S2, 0)
+            if a is not None:
+                Z1 = T1 - cho_solve(a["chol1"], a["W"].T @ S2)
+                update = update + torch.sum(U1 * Z1, 0)
+            updates.append(update)
+        self._var_info = info
+        prior_var = self.prior.cov(xq.to(dt).reshape((-1,) + tuple(self.prior.input_shape)))
+        return torch.clamp(prior_var - torch.cat(updates), min=0.0)
+
+    def std(self, x, **kw) -> torch.Tensor:
+        """Posterior standard deviation: ``sqrt(var(x, **kw))``."""
+        return torch.sqrt(self.var(x, **kw))

@@ -11,6 +11,11 @@ Routing: a CUDA tensor goes to the hand-written kernels of
 ``csrc/gram.cu`` (through ``ops/_cuda.py``); a CPU tensor goes to the
 plain PyTorch version in this module (:func:`gram_plain`,
 :func:`gram_matvec_plain`).  There is no other route and no fallback.
+:func:`gram_matrix` takes a kernel object and routes through
+:func:`gram`.  K2 takes one of two routes by the number r of
+right-hand-side columns (``csrc/gram.cu``): one thread per output row for
+r <= 4, and for r > 4 a route that evaluates each pair once per block of
+64 to 256 columns.
 
 Modes (``config.py``): ``"plain"`` (float32), ``"ff"`` (float32
 float-float pairs, the JAX package's ``compensated=True``) and ``"f64"``
@@ -349,6 +354,27 @@ def gram(terms, X0, X1, mode=None) -> torch.Tensor:
     if X0.device.type != "cpu":
         raise ValueError(f"no route for device {X0.device}")
     return gram_plain(terms, X0, X1, mode)
+
+
+def gram_matrix(kernel, X0, X1=None, mode=None) -> torch.Tensor:
+    """Dense Gram ``k(X0, X1)`` of a scalar kernel of the sum-of-products
+    family (``pallas_gram.py:499`` of the JAX package): ``scale * gram(terms,
+    ...)`` of ``kernel_term_specs(kernel)``, so K1 on CUDA tensors and
+    :func:`gram_plain` on CPU tensors.  ``X0`` / ``X1``: ``(n,) +
+    input_shape`` points (``X1=None``: ``X0``).  A kernel without a spec
+    raises ``NotImplementedError``: the dense engine that would evaluate it
+    is ROADMAP Queue 1 item 9."""
+    spec = kernel_term_specs(kernel)
+    if spec is None:
+        raise NotImplementedError(
+            f"{type(kernel).__name__} has no sum-of-products spec; the dense engine is ROADMAP Queue 1 item 9"
+        )
+    scale, terms = spec
+    X0 = torch.as_tensor(X0)
+    X1 = X0 if X1 is None else torch.as_tensor(X1)
+    d = max(kernel.input_size, 1)
+    out = gram(terms, X0.reshape(-1, d), X1.reshape(-1, d), mode)
+    return scale * out if scale != 1.0 else out
 
 
 def gram_matvec(spec, X0, X1, v, mode=None) -> torch.Tensor:

@@ -2,7 +2,10 @@ r"""Float-float preconditioned CG and the tail-damped Nyström
 preconditioner.
 
 Port of the main-path subset of ``linpde_gp_tpu/ops/linalg/pcg.py``:
-:func:`pcg_ff` with its two step functions, the ff scalar helpers,
+:func:`pcg_ff` with its two step functions, the blocked multi-right-hand-
+side :func:`pcg_block_ff` with its two step functions and the plain
+:func:`pcg_block`, the ff scalar helpers, :func:`ff_dot_cols` and
+:func:`ff_norm2_cols`,
 :class:`NystromPreconditioner`, :func:`nystrom_preconditioner_device`
 and :func:`landmark_indices`.
 
@@ -20,6 +23,15 @@ Differences from the JAX package:
 - No 16384-row chunking of the ``(n, m)`` products: it worked around a
   TPU compile service, and the whole ``(1e5, 8192)`` block fits on the
   card.
+- The matvec may return a float64 result for float32 state (the anchored
+  Schur operator subtracts its correction in float64); the CG splits it
+  into an ff pair instead of rounding it.
+- :func:`pcg_block_ff` carries these fixes per column: ``||r_j||^2 =
+  sum (hi + lo)^2``, the test on the current iterate, a zero column
+  returns 0, a breakdown column stops with its last finite iterate, the
+  matvec sees the ff pair ``(P_hi, P_lo)`` (the JAX one passes ``P_hi``
+  only) and the result is the ff pair ``(x, x_lo)`` (not ``hi + lo``
+  rounded to float32).
 """
 
 from __future__ import annotations
@@ -66,9 +78,34 @@ def ff_dot(x, y):
     return two_sum(torch.sum(p), torch.sum(lo))
 
 
+def ff_dot_cols(x, y):
+    """Per-column dot products of two ``(n, r)`` ff arrays as an ``(r,)``
+    ff pair (``pcg.py:497``; the blocked analogue of :func:`ff_dot`)."""
+    p, e = two_prod(x[0], y[0])
+    lo = e + (x[0] * y[1] + x[1] * y[0])
+    return two_sum(torch.sum(p, 0), torch.sum(lo, 0))
+
+
+def ff_norm2_cols(x):
+    """Per-column ``||hi + lo||^2`` of an ``(n, r)`` ff array: a sum of
+    squares, never negative.  (``ff_dot_cols(x, x)``'s hi plane turns
+    negative once x's unnormalized planes cancel.)"""
+    s = x[0] + x[1]
+    return torch.sum(s * s, 0)
+
+
 def _ff_axpy(alpha_ff, x_ff, y_ff):
     """y + alpha * x on ff vectors with an ff scalar alpha."""
     return ff_add(y_ff, ff_mul(x_ff, alpha_ff))
+
+
+def _as_ff(K: torch.Tensor, dtype: torch.dtype):
+    """A matvec result as an ff pair in ``dtype``: ``(K, 0)``, or a wider
+    (float64) result split into ``hi + lo`` instead of rounded."""
+    if K.dtype == dtype:
+        return K, torch.zeros_like(K)
+    hi = K.to(dtype)
+    return hi, (K - hi.to(K.dtype)).to(dtype)
 
 
 # -- CG ----------------------------------------------------------------------------
@@ -79,8 +116,7 @@ def _step_a(matvec, sigma_ff, x, p, r, rz):
 
     ``matvec`` is the UNSHIFTED Gram matvec of the ff pair ``p``; the
     ``sigma^2 I`` shift is applied in ff here."""
-    Kp = matvec(p)
-    Ap = ff_add((Kp, torch.zeros_like(Kp)), ff_mul(p, sigma_ff))
+    Ap = ff_add(_as_ff(matvec(p), p[0].dtype), ff_mul(p, sigma_ff))
     alpha = ff_div(rz, ff_dot(p, Ap))
     x_new = _ff_axpy(alpha, p, x)
     r_new = _ff_axpy((-alpha[0], -alpha[1]), Ap, r)
@@ -116,8 +152,9 @@ def pcg_ff(
     preconditioned CG with float-float vector state.
 
     ``matvec((v_hi, v_lo))`` applies the unshifted ``K`` to an ff pair and
-    returns one tensor in ``b``'s dtype; a matvec that reads only ``v_hi``
-    drops ``K v_lo``, ~eps of ``sum |K| |v|``.  ``precond(r)`` applies an
+    returns one tensor in ``b``'s dtype (or in float64, split into an ff
+    pair); a matvec that reads only ``v_hi`` drops ``K v_lo``, ~eps of
+    ``sum |K| |v|``.  ``precond(r)`` applies an
     approximation of ``(K + sigma_sq I)^{-1}`` (``None``: identity).  All
     state stays on ``b``'s device; the host reads one scalar per
     iteration.  The solution is ``x + x_lo`` of the result.
@@ -153,6 +190,133 @@ def pcg_ff(
             break
     relres = float(np.sqrt(rn2)) / b_norm
     x_hi, x_lo = two_sum(x[0], x[1])
+    return PCGResult(x_hi, k, relres, x_lo)
+
+
+# -- blocked CG: many right-hand sides through one shared matvec -----------------------
+
+
+def pcg_block(
+    matvec: Callable, B: torch.Tensor, *, M: Callable | None = None, tol: float = 1e-6, maxiter: int = 512
+) -> PCGResult:
+    """Solve ``A X = B`` for a block of right-hand sides sharing one
+    ``matvec((n, r))`` per iteration, in ``B``'s dtype (``pcg.py:173`` of
+    the JAX package): flexible Polak-Ribiere CG per column, beta clamped at
+    0, converged columns frozen by masked updates; the loop ends when
+    every column's ``||r_j|| <= tol ||b_j||`` or at ``maxiter``.  The host
+    reads one flag per iteration.  ``x_lo`` of the result is zero."""
+    if M is None:
+        M = lambda r: r  # noqa: E731
+    X = torch.zeros_like(B)
+    R = B
+    Z = M(R)
+    P = Z
+    rz = torch.sum(R * Z, 0)
+    b_norm = torch.linalg.vector_norm(B, dim=0)
+    threshold = tol * torch.where(b_norm > 0, b_norm, torch.ones_like(b_norm))
+    k = 0
+    active = torch.linalg.vector_norm(R, dim=0) > threshold
+    while k < maxiter and bool(active.any()):
+        AP = matvec(P)
+        pAp = torch.sum(P * AP, 0)
+        alpha = torch.where(active, rz / torch.where(pAp != 0, pAp, torch.ones_like(pAp)), torch.zeros_like(rz))
+        X = X + alpha * P
+        R_new = R - alpha * AP
+        Z = M(R_new)
+        rz_new = torch.sum(R_new * Z, 0)
+        pr = rz_new - torch.sum(Z * R, 0)
+        beta = torch.where(
+            active, torch.clamp(pr / torch.where(rz != 0, rz, torch.ones_like(rz)), min=0.0), torch.zeros_like(rz)
+        )
+        P = Z + beta * P
+        R, rz = R_new, torch.where(active, rz_new, rz)
+        active = torch.linalg.vector_norm(R, dim=0) > threshold
+        k += 1
+    relres = float(torch.max(torch.linalg.vector_norm(R, dim=0) / torch.where(b_norm > 0, b_norm, 1.0)))
+    return PCGResult(X, k, relres, torch.zeros_like(X))
+
+
+def _block_step_a(matvec, sigma_ff, X, P, R, rz, active):
+    """The blocked ``_step_a``: one shared matvec of the ``(n, r)`` ff pair
+    ``P``, per-column alpha (0 where frozen) and ``||r_j||^2`` (a sum of
+    squares of ``hi + lo``, never negative)."""
+    AP = ff_add(_as_ff(matvec(P), P[0].dtype), ff_mul(P, sigma_ff))
+    pAp = ff_dot_cols(P, AP)
+    safe = (pAp[0] != 0) & active
+    alpha = ff_div(rz, (torch.where(safe, pAp[0], 1.0), torch.where(safe, pAp[1], 0.0)))
+    alpha = tuple(torch.where(safe, c, 0.0)[None, :] for c in alpha)
+    X_new = _ff_axpy(alpha, P, X)
+    R_new = _ff_axpy((-alpha[0], -alpha[1]), AP, R)
+    return X_new, R_new, ff_norm2_cols(R_new)
+
+
+def _block_step_b(precond, R, R_old, P, rz_old, active):
+    """The blocked ``_step_b``: preconditioner apply, per-column ``r.z``
+    and the Polak-Ribiere beta (0 where frozen or negative), the P update."""
+    Z = R[0] if precond is None else precond(R[0])
+    Zf = (Z, torch.zeros_like(Z))
+    rz_new = ff_dot_cols(R, Zf)
+    num = ff_sub(rz_new, ff_dot_cols(Zf, R_old))
+    safe = (rz_old[0] != 0) & active
+    beta = ff_div(num, (torch.where(safe, rz_old[0], 1.0), torch.where(safe, rz_old[1], 0.0)))
+    keep = safe & (beta[0] > 0)
+    beta = tuple(torch.where(keep, c, 0.0)[None, :] for c in beta)
+    return ff_add(Zf, ff_mul(P, beta)), rz_new
+
+
+def pcg_block_ff(
+    matvec: Callable,
+    precond: Callable | None,
+    B: torch.Tensor,
+    sigma_sq: float,
+    *,
+    tol: float = 1e-6,
+    maxiter: int = 512,
+) -> PCGResult:
+    """Solve ``(K + sigma_sq I) X = B`` for the ``r`` columns of ``B``
+    (``(n, r)``) by flexible preconditioned CG with float-float state and
+    one shared ``matvec`` per iteration (``pcg.py:560`` of the JAX
+    package, with the fixes of :func:`pcg_ff` per column).
+
+    ``matvec((P_hi, P_lo))`` applies the unshifted ``K`` to an ``(n, r)``
+    ff pair and returns ``(n, r)`` in ``B``'s dtype or in float64;
+    ``precond`` takes and returns ``(n, r)``.  Column ``j`` stops when
+    ``||r_j|| <= tol ||b_j||`` (on the current iterate), at breakdown
+    (``r_j.z_j <= 0``, or a non-finite residual, which returns the last
+    finite iterate) or at ``maxiter``; a stopped column is frozen by masked
+    updates, and a zero column returns 0.  All state stays on ``B``'s
+    device; the host reads one flag per iteration.  The solution is ``x +
+    x_lo`` of the result; ``relative_residual`` is the largest column's,
+    ``iterations`` the loop's count.
+    """
+    dtype = B.dtype
+    zeros = torch.zeros_like(B)
+    b_norm2 = torch.sum(B.to(torch.float64) ** 2, 0)
+    threshold2 = tol**2 * b_norm2
+    sigma_ff = tuple(torch.tensor(c, dtype=dtype, device=B.device) for c in ff_const(float(sigma_sq), dtype))
+    X = (zeros, zeros)
+    R = (B, zeros)
+    ones = torch.ones(B.shape[1], dtype=dtype, device=B.device)
+    active = b_norm2 > 0
+    P, rz = _block_step_b(precond, R, (zeros, zeros), (zeros, zeros), (ones, torch.zeros_like(ones)), active)
+    rn2 = b_norm2
+    k = 0
+    while k < maxiter and bool(active.any()):
+        X_old, R_old = X, R
+        X, R, rn2_t = _block_step_a(matvec, sigma_ff, X, P, R, rz, active)
+        # A column whose residual turned non-finite keeps its last finite iterate.
+        moved = active & torch.isfinite(rn2_t)
+        X = tuple(torch.where(moved[None, :], a, b) for a, b in zip(X, X_old))
+        R = tuple(torch.where(moved[None, :], a, b) for a, b in zip(R, R_old))
+        rn2 = torch.where(moved, rn2_t.to(torch.float64), rn2)
+        P, rz = _block_step_b(precond, R, R_old, P, rz, moved)
+        # r.z <= 0: the column lost definiteness at the working precision
+        # (as in pcg_ff); stop it with the current iterate.
+        active = moved & (rn2 > threshold2) & (rz[0] > 0)
+        k += 1
+    b_norm2 = torch.where(b_norm2 > 0, b_norm2, 1.0)
+    relres = float(torch.max(torch.sqrt(rn2 / b_norm2))) if B.shape[1] else 0.0
+    x_hi, x_lo = two_sum(X[0], X[1])
     return PCGResult(x_hi, k, relres, x_lo)
 
 

@@ -48,6 +48,7 @@ _MODULES = [
     "linpde_gp_tpu_torch.ops.transforms.product",
     "linpde_gp_tpu_torch.ops.transforms.dispatch",
     "linpde_gp_tpu_torch.utils.shapes",
+    "linpde_gp_tpu_torch.utils.serialization",
     "linpde_gp_tpu_torch.models.functions",
     "linpde_gp_tpu_torch.models.functions.base",
     "linpde_gp_tpu_torch.models.functions.polynomial",

@@ -1,12 +1,15 @@
 """Float-float CG, the Nyström preconditioner and the robust Cholesky of
 the PyTorch port, against the JAX package and dense solves.
 
-Ports of ``tests/test_pcg_r5.py::test_ff_scalar_helpers`` and
-``::test_pcg_ff_with_preconditioner`` (same inputs and bounds), plus
-agreement with the JAX package's ``landmark_indices``,
-``nystrom_preconditioner_device`` and ``cholesky``.  The zero right-hand
-side is checked against the dense answer (0), not against the JAX
-package, which returns NaN there.
+Ports of ``tests/test_pcg_r5.py::test_ff_scalar_helpers``,
+``::test_pcg_ff_with_preconditioner`` and
+``tests/test_linalg.py::test_pcg_block_matches_direct_solve`` (same inputs
+and bounds), plus agreement with the JAX package's ``landmark_indices``,
+``nystrom_preconditioner_device``, ``cholesky``, ``pcg_block`` and
+``ff_dot_cols``.  Zero right-hand sides are checked against the dense
+answer (0), not against the JAX package, which returns NaN there; the
+blocked CG's frozen, non-finite and cancelling columns against what the
+port fixes.
 """
 
 import numpy as np
@@ -15,17 +18,25 @@ import pytest
 import scipy.linalg
 import torch
 
+from linpde_gp_tpu.ops.ff import ff_const as jax_ff_const
 from linpde_gp_tpu.ops.linalg.chol import cholesky as jax_cholesky
 from linpde_gp_tpu.ops.linalg.pcg import (
+    ff_dot_cols as jax_ff_dot_cols,
     landmark_indices as jax_landmark_indices,
+    make_pcg_block_ff_programs as jax_block_ff_programs,
     nystrom_preconditioner_device as jax_nystrom_device,
+    pcg_block as jax_pcg_block,
 )
 from linpde_gp_tpu_torch.ops.linalg.chol import cho_solve, cholesky, solve_triangular
 from linpde_gp_tpu_torch.ops.linalg.pcg import (
     ff_div,
     ff_dot,
+    ff_dot_cols,
+    ff_norm2_cols,
     landmark_indices,
     nystrom_preconditioner_device,
+    pcg_block,
+    pcg_block_ff,
     pcg_ff,
 )
 
@@ -194,3 +205,164 @@ def test_pcg_ff_stops_on_breakdown_without_nan():
     it, rr = reg.solve_info
     assert torch.isfinite(w).all()
     assert it < 512 and 1e-12 < rr < 1e-5
+
+
+# -- blocked CG -------------------------------------------------------------------
+
+
+def _block_system():
+    """test_linalg.py::test_pcg_block_matches_direct_solve's input."""
+    rng = np.random.default_rng(5)
+    A0 = rng.standard_normal((60, 60))
+    return A0 @ A0.T + 60 * np.eye(60), rng.standard_normal((60, 7))
+
+
+def test_pcg_block_matches_direct_solve():
+    """Port of test_linalg.py::test_pcg_block_matches_direct_solve (same
+    input and bounds), also held against the JAX pcg_block's solution."""
+    A, B = _block_system()
+    At, Bt = torch.from_numpy(A), torch.from_numpy(B)
+    res = pcg_block(lambda v: At @ v, Bt, tol=1e-12, maxiter=300)
+    X_ref = np.linalg.solve(A, B)
+    np.testing.assert_allclose(res.x.numpy(), X_ref, rtol=1e-8, atol=1e-9)
+    assert res.relative_residual < 1e-10
+    want = jax_pcg_block(lambda v: jnp.asarray(A) @ v, jnp.asarray(B), tol=1e-12, maxiter=300)
+    np.testing.assert_allclose(res.x.numpy(), np.asarray(want.x), rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_pcg_block_ff_matches_direct_solve(dtype):
+    """The same system through pcg_block_ff, shifted by sigma^2 = 1e-3.  In
+    float64 at tol 1e-12 the bounds of the test above; in float32 with ff
+    state and an f32 matvec, tol 1e-6 and 1e-5 of max|X| (the f32 matvec
+    leaves ~eps32 cond ~ 1e-6 relative error)."""
+    A, B = _block_system()
+    At, Bt = torch.from_numpy(A).to(dtype), torch.from_numpy(B).to(dtype)
+    tol = 1e-12 if dtype == torch.float64 else 1e-6
+    lo_planes = []
+
+    def mv(p):
+        lo_planes.append(bool((p[1] != 0).any()))
+        return At @ p[0]
+
+    res = pcg_block_ff(mv, None, Bt, 1e-3, tol=tol, maxiter=300)
+    assert any(lo_planes)  # the matvec is handed the ff pair (P_hi, P_lo)
+    X_ref = np.linalg.solve(A + 1e-3 * np.eye(60), B)
+    X = res.x.double().numpy() + res.x_lo.double().numpy()
+    assert res.relative_residual <= tol and 0 < res.iterations < 300
+    if dtype == torch.float64:
+        np.testing.assert_allclose(X, X_ref, rtol=1e-8, atol=1e-9)
+    else:
+        assert np.max(np.abs(X - X_ref)) <= 1e-5 * np.abs(X_ref).max()
+
+
+def test_pcg_block_ff_with_preconditioner():
+    """test_pcg_ff_with_preconditioner's system with 5 right-hand sides in
+    float32: the Nystrom apply takes (n, r), cuts the iterations, and each
+    column meets the single-vector test's bound."""
+    n = 512
+    A, b, _ = _spd_system(n=n, cond=1e5, seed=3)
+    sigma = 1e-3
+    X = torch.arange(n, dtype=torch.float32)[:, None]
+    M = nystrom_preconditioner_device(_index_block_fn(A), X, X[landmark_indices(n, 64)], sigma)
+    B = np.stack([b, np.roll(b, 7), b[::-1], np.sin(np.arange(n, dtype=np.float32)), np.ones(n, np.float32)], 1)
+    At, Bt = torch.from_numpy(A), torch.from_numpy(B.astype(np.float32))
+    res = pcg_block_ff(lambda v: At @ v[0], M, Bt, sigma, tol=1e-6, maxiter=1000)
+    res_plain = pcg_block_ff(lambda v: At @ v[0], None, Bt, sigma, tol=1e-6, maxiter=1000)
+    assert res.relative_residual <= 1e-6 and res.iterations < res_plain.iterations
+    X_ref = np.linalg.solve(A.astype(np.float64) + sigma * np.eye(n), B.astype(np.float64))
+    err = np.linalg.norm(res.x.double().numpy() - X_ref, axis=0)
+    assert np.all(err <= 1e-4 * (1.0 + np.linalg.norm(X_ref, axis=0)))
+
+
+def test_pcg_block_ff_freezes_zero_and_converged_columns():
+    """Float64: a zero column returns exactly 0 (not NaN) and its search
+    direction stays 0; a unit vector of a diagonal system converges at
+    iteration 1 and is frozen after it, bit for bit, while the random
+    columns run on."""
+    n = 32
+    d = np.linspace(1.0, 4.0, n)
+    rng = np.random.default_rng(9)
+    B = np.zeros((n, 4))
+    B[3, 1] = 1.0
+    B[:, 2:] = rng.standard_normal((n, 2))
+    dt, Bt = torch.from_numpy(d)[:, None], torch.from_numpy(B)
+    seen = []
+
+    def mv(p):
+        seen.append(p[0].clone())
+        return dt * p[0]
+
+    one = pcg_block_ff(mv, None, Bt, 1e-3, tol=1e-12, maxiter=1)
+    full = pcg_block_ff(mv, None, Bt, 1e-3, tol=1e-12, maxiter=200)
+    assert full.iterations > 2 and full.relative_residual <= 1e-12
+    zero = torch.zeros(n, dtype=torch.float64)
+    assert torch.equal(full.x[:, 0], zero) and torch.equal(full.x_lo[:, 0], zero)
+    assert torch.equal(full.x[:, 1], one.x[:, 1]) and torch.equal(full.x_lo[:, 1], one.x_lo[:, 1])
+    assert all(torch.equal(p[:, 0], zero) for p in seen)
+    X_ref = B / (d[:, None] + 1e-3)
+    np.testing.assert_allclose(full.x.numpy(), X_ref, rtol=0, atol=1e-11 * np.abs(X_ref).max())
+
+
+def test_pcg_block_ff_nonfinite_column_keeps_last_iterate():
+    """A column whose matvec turns non-finite at iteration 3 stops with its
+    iterate from iteration 2; the other columns converge."""
+    A, B = _block_system()
+    At, Bt = torch.from_numpy(A), torch.from_numpy(B)
+    calls = []
+
+    def mv(p):
+        calls.append(None)
+        out = At @ p[0]
+        if len(calls) == 3:
+            out[:, 4] = float("nan")
+        return out
+
+    two = pcg_block_ff(lambda p: At @ p[0], None, Bt, 1e-3, tol=1e-12, maxiter=2)
+    res = pcg_block_ff(mv, None, Bt, 1e-3, tol=1e-12, maxiter=300)
+    assert torch.isfinite(res.x).all()
+    assert torch.equal(res.x[:, 4], two.x[:, 4])
+    X_ref = np.linalg.solve(A + 1e-3 * np.eye(60), B)
+    keep = [0, 1, 2, 3, 5, 6]
+    np.testing.assert_allclose(res.x.numpy()[:, keep], X_ref[:, keep], rtol=1e-8, atol=1e-9)
+
+
+def test_pcg_block_ff_cancelling_planes_do_not_converge():
+    """The JAX pcg_block_ff tests ``ff_dot_cols(R, R)[0]``: once a column's
+    residual planes cancel (|lo| > |hi| / 2, opposite signs) that hi plane
+    reads <= 0 and the column counts as converged.  Two CG steps of JAX's
+    programs on a 2 x 2 float32 system leave such columns with a true
+    residual ~1e-8 of ||b||, above tol = 1e-10; the port's measure,
+    ``||hi + lo||^2``, reads them unconverged, and its CG runs on."""
+    rng = np.random.default_rng(0)
+    Q, _ = np.linalg.qr(rng.standard_normal((2, 2)))
+    A = ((Q * np.logspace(0, -1, 2)) @ Q.T).astype(np.float32)
+    A = 0.5 * (A + A.T)
+    B = rng.standard_normal((2, 64)).astype(np.float32)
+    tol, r = 1e-10, B.shape[1]
+    step_a, step_b = jax_block_ff_programs(lambda aux, v: aux @ v, None)
+    Bj = jnp.asarray(B)
+    zero = jnp.zeros_like(Bj)
+    sigma = tuple(jnp.asarray(c, jnp.float32) for c in jax_ff_const(1e-3, jnp.float32))
+    active = jnp.ones(r, bool)
+    P, rz = step_b(None, (Bj, zero), (zero, zero), (zero, zero),
+                   (jnp.ones(r, jnp.float32), jnp.zeros(r, jnp.float32)), active)
+    X, R = (zero, zero), (Bj, zero)
+    for _ in range(2):
+        R_old = R
+        X, R, _ = step_a(jnp.asarray(A), sigma, X, P, R, rz, active)
+        P, rz = step_b(None, R, R_old, P, rz, active)
+    threshold2 = tol**2 * np.sum(B.astype(np.float64) ** 2, 0)
+    jax_hi = np.asarray(jax_ff_dot_cols(R, R)[0], np.float64)
+    R_t = tuple(torch.from_numpy(np.array(c)) for c in R)
+    port = ff_norm2_cols(R_t).double().numpy()
+    cancelled = jax_hi <= 0
+    assert cancelled.sum() >= 5  # 23 of the 64 columns on this input
+    assert np.all(port[cancelled] > threshold2[cancelled])
+    # ff_dot_cols itself is the port of JAX's, plane for plane.
+    hi, lo = ff_dot_cols(R_t, R_t)
+    np.testing.assert_array_equal(hi.numpy(), np.asarray(jax_ff_dot_cols(R, R)[0]))
+    # The port's CG on the same system does not stop there.
+    At, Bt = torch.from_numpy(A), torch.from_numpy(B)
+    res = pcg_block_ff(lambda p: At @ p[0], None, Bt, 1e-3, tol=tol, maxiter=3)
+    assert res.iterations == 3 and res.relative_residual > tol
