@@ -8,8 +8,9 @@ are gram-free GP conditioning on operator observations
 ``ops.diffops``) through the symbolic layer that derives closed-form
 kernel specs (``ops/kernels``, ``ops/diffops``, ``ops/transforms``), with
 hand-written CUDA kernels for Gram assembly and the Gram matvec
-(``csrc/gram.cu``) and the banded matvec of compactly supported kernels
-(``csrc/banded.cu``).
+(``csrc/gram.cuh``) and the banded matvec of compactly supported kernels
+(``csrc/banded.cuh``), compiled per kernel-spec structure at first use
+(``ops/_cuda.py``).
 """
 
 import torch

@@ -36,15 +36,11 @@ class _Config:
     #: threads, one output entry each.
     gram_tile: int = 16
 
-    #: K2 (Gram matvec) rows per block, which is also the width of the
-    #: column tile staged in shared memory (plain and f64 bodies).  The
-    #: banded matvec uses it in every mode, as rows per block (each with
-    #: its own column window) and as the width of the column tiles that
-    #: ``band_tiles`` / ``total_tiles`` count.
+    #: Rows per block of the banded matvec, each block with its own
+    #: column window, and the width of the column tiles that
+    #: ``band_tiles`` / ``total_tiles`` count.  On the card it must be a
+    #: multiple of 128 (the narrow walk's rows per block in every mode).
     matvec_tile: int = 128
-
-    #: K2 rows per block / column-tile width for the float-float body.
-    matvec_tile_compensated: int = 128
 
 
 config = _Config()

@@ -5,10 +5,11 @@
 // floats with hi + lo accurate to ~eps32^2.  The error-free transforms are
 // exact only if no multiply and add are contracted into one FMA, so every
 // operation is written with the round-to-nearest intrinsics (__fadd_rn,
-// __fsub_rn, __fmul_rn), which the compiler never contracts; the library is
-// also compiled with --fmad=false.  two_prod uses the exact fmaf(a, b, -p)
-// in place of Dekker's split: both give the unique error term, so results
-// equal the plain version's bit for bit.
+// __fsub_rn, __fmul_rn), which the compiler never contracts, even though the
+// modules are compiled with contraction on (for the plain and f64 bodies,
+// which write their FMAs explicitly).  two_prod uses the exact fmaf(a, b, -p)
+// in place of Dekker's split: both give the unique error term, so each
+// operation equals its plain version in ops/ff.py bit for bit.
 #pragma once
 
 #include <cuda_runtime.h>

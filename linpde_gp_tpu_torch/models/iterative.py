@@ -33,6 +33,7 @@ import torch
 
 from ..config import mode_dtype, resolve_device, resolve_mode
 from ..ops.banded import compact_support_radius, make_banded_matvec
+from ..ops.ff import ff_split
 from ..ops.gram import gram, gram_matrix, gram_matvec, kernel_term_specs
 from ..ops.linalg.chol import cho_solve, cholesky
 from ..ops.linalg.pcg import landmark_indices, nystrom_preconditioner_device, pcg_block_ff, pcg_ff
@@ -248,17 +249,19 @@ class IterativeGPRegressor:
             )
         return self._precond
 
-    def _gram_matvec_raw(self, v_ff) -> torch.Tensor:
+    def _gram_matvec_raw(self, v_ff):
         """Gram matvec of an ff pair (``(n,)`` or ``(n, r)`` planes) WITHOUT
         the noise shift (the CG applies sigma^2 itself, in float-float),
-        banded where routed.  Mode ff feeds both planes to the kernel; the
-        other modes read the hi plane."""
-        v = v_ff if self.mode == "ff" else v_ff[0]
+        banded where routed.  Mode ff feeds both planes to the kernel and
+        returns the result's ff pair; the other modes read the hi plane and
+        return one tensor."""
+        if self.mode != "ff":
+            v_ff = v_ff[0]
         if self._banded is not None:
-            return self._banded(v)
-        return gram_matvec(self._obs_spec, self.X, self.X, v, self.mode)
+            return self._banded(v_ff)
+        return gram_matvec(self._obs_spec, self.X, self.X, v_ff, self.mode)
 
-    def _cg_matvec(self, v_ff) -> torch.Tensor:
+    def _cg_matvec(self, v_ff):
         """The CG operator without the noise shift: the Gram matvec, minus
         the Schur correction ``W A11^{-1} W^T v`` with anchors
         (``iterative.py:343-351``).  The correction is formed and
@@ -271,7 +274,8 @@ class IterativeGPRegressor:
             return out
         dt = a["W"].dtype
         v = v_ff[0].to(dt) + v_ff[1].to(dt)
-        return out.to(dt) - a["W"] @ cho_solve(a["chol1"], a["W"].T @ v)
+        out = out[0].to(dt) + out[1].to(dt) if self.mode == "ff" else out.to(dt)
+        return out - a["W"] @ cho_solve(a["chol1"], a["W"].T @ v)
 
     def _solve_device_cg(self, rhs: torch.Tensor):
         res = pcg_ff(
@@ -356,7 +360,10 @@ class IterativeGPRegressor:
         blocks' dtype."""
         xq = self._queries(x)
         w = self._weights_ff()
-        mu = gram_matvec(self._cross_spec, xq, self.X, w if self.mode == "ff" else w[0], self.mode)
+        if self.mode == "ff":
+            mu = gram_matvec(self._cross_spec, xq, self.X, w, self.mode)[0]
+        else:
+            mu = gram_matvec(self._cross_spec, xq, self.X, w[0], self.mode)
         a = self._anchors
         if a is None:
             return mu
@@ -375,8 +382,10 @@ class IterativeGPRegressor:
 
         Modes ff and f64 form the quadratic form and the subtraction in
         float64 and return float64 (ff, as :attr:`representer_weights`
-        does); plain mode returns float32.  ``tol``: the CG tolerance of
-        the variance solves (``None``: the regressor's); it is relative to
+        does); plain mode returns float32.  Mode ff evaluates ``kxX`` by K1
+        in f64 and hands it to the CG as an ff pair, not rounded to f32.
+        ``tol``: the CG tolerance of the variance solves (``None``: the
+        regressor's); it is relative to
         each right-hand side, whose quadratic form can exceed the variance
         by orders of magnitude where the data pin the posterior down.
         :attr:`var_info` holds each block's ``(iterations,
@@ -388,19 +397,23 @@ class IterativeGPRegressor:
         dt = torch.float32 if self.mode == "plain" else torch.float64
         M = self._preconditioner()
         updates, info = [], []
+        # kxX in the quadratic form's dtype: f64 K1 on the points as stored.
+        kx_mode = "plain" if self.mode == "plain" else "f64"
         for s in range(0, xq.shape[0], int(block_size)):
             xb = xq[s:s + int(block_size)]
-            U2 = gram_matrix(self._k_cross, xb, self.X, self.mode).T.contiguous()  # (n, b)
+            U2 = gram_matrix(self._k_cross, xb.to(dt), self.X.to(dt), kx_mode).T.contiguous()  # (n, b)
             rhs = U2
             if a is not None:
                 U1 = gram_matrix(self.prior.cov, a["X1"], xb.to(dt), self._anchor_mode)  # (n1, b)
                 T1 = cho_solve(a["chol1"], U1)
-                rhs = (U2.to(dt) - a["W"] @ T1).to(U2.dtype)
+                rhs = U2 - a["W"] @ T1
+            if rhs.dtype != self.X.dtype:
+                rhs = ff_split(rhs, self.X.dtype)
             res = pcg_block_ff(self._cg_matvec, M, rhs, self.noise_variance, tol=self.tol if tol is None else tol,
                                maxiter=self.maxiter)
             info.append((res.iterations, res.relative_residual))
             S2 = res.x.to(dt) + res.x_lo.to(dt)
-            update = torch.sum(U2.to(dt) * S2, 0)
+            update = torch.sum(U2 * S2, 0)
             if a is not None:
                 Z1 = T1 - cho_solve(a["chol1"], a["W"].T @ S2)
                 update = update + torch.sum(U1 * Z1, 0)

@@ -20,11 +20,13 @@ evaluate as inside (with the Horner rounding residue ``~eps * sum|c|``, not
 0), and the band must hold every pair the dense kernel would count.
 
 Routing: a CUDA tensor launches the hand-written kernel of
-``csrc/banded.cu``, which replaces both TPU kernels (the multi-RHS
+``csrc/banded.cuh``, which replaces both TPU kernels (the multi-RHS
 ``_build_banded_matvec`` and the r = 1 panel ``_build_banded_panel_matvec``);
 a CPU tensor takes the plain PyTorch version :func:`banded_matvec_plain`,
 the same block-by-window algorithm.  There is no other route and no
 fallback.  The permutation gathers are torch index ops outside the kernel.
+In mode ff the result is the ff pair ``(hi, lo)``, as for
+``ops/gram.gram_matvec``.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import numpy as np
 import torch
 
 from ..config import config, resolve_mode
+from .ff import ff_split
 from .gram import _as_points, _as_rhs, _collapse_terms, _eval_block
 
 #: Float32 ulps of the coordinate scale each window is widened by.
@@ -85,13 +88,14 @@ def band_tile_counts(windows: np.ndarray, n1: int, tile: int) -> tuple[int, int]
     return int(np.max(band)), total
 
 
-def banded_matvec_plain(spec, X0s, X1s, v, windows, tile: int, mode=None, v_lo=None) -> torch.Tensor:
+def banded_matvec_plain(spec, X0s, X1s, v, windows, tile: int, mode=None, v_lo=None):
     """Plain PyTorch version of the banded kernel, on any device:
     ``scale * K(X0s, X1s) @ v`` with each block of ``tile`` sorted rows
     evaluated against only its column window (``windows``, as
     :func:`band_windows` returns).  ``v``: ``(n1, r)`` in the sorted column
-    order; mode ff takes its lo plane as ``v_lo`` and forms the product
-    with the ff entries in float64 (the kernel carries it in ff)."""
+    order; mode ff takes its lo plane as ``v_lo``, forms the product with
+    the ff entries and the sum in float64 (the kernel carries them in ff)
+    and returns the ff pair ``(hi, lo)``."""
     mode = resolve_mode(mode)
     scale, terms = spec
     groups = _collapse_terms(tuple(terms))
@@ -107,8 +111,9 @@ def banded_matvec_plain(spec, X0s, X1s, v, windows, tile: int, mode=None, v_lo=N
         if mode == "ff":
             blk = blk[0].double() + blk[1].double()
         out[rows] = blk @ v[lo:hi]
-    out = out.to(X0s.dtype)
-    return scale * out if scale != 1.0 else out
+    if scale != 1.0:
+        out = scale * out
+    return ff_split(out) if mode == "ff" else out
 
 
 class BandedMatvec:
@@ -160,27 +165,31 @@ class BandedMatvec:
         return hi, lo, vector
 
     def _finish(self, out_sorted, vector):
-        out = out_sorted[self._inv0]
-        return out[:, 0] if vector else out
+        def unsort(o):
+            o = o[self._inv0]
+            return o[:, 0] if vector else o
 
-    def __call__(self, v) -> torch.Tensor:
+        if self.mode != "ff":
+            return unsort(out_sorted)
+        return unsort(out_sorted[0]), unsort(out_sorted[1])
+
+    def __call__(self, v):
         """``v``: ``(n1,)`` or ``(n1, r)``, or in mode ff also an ff pair
-        ``(hi, lo)`` of those.  CUDA tensors launch the kernel; CPU tensors
-        take :func:`banded_matvec_plain`."""
+        ``(hi, lo)`` of those; mode ff returns the ff pair of the result.
+        CUDA tensors launch the kernel; CPU tensors take
+        :func:`banded_matvec_plain`."""
         if self.device.type == "cuda":
             from . import _cuda
 
             hi, lo, vector = self._sorted_rhs(v)
-            out = _cuda.banded_matvec(self._groups, self.X0s, self.X1s, hi, self._windows_dev, self.tile, self.mode, lo)
-            scale = self.spec[0]
-            if scale != 1.0:
-                out = scale * out
+            out = _cuda.banded_matvec(self._groups, self.X0s, self.X1s, hi, self._windows_dev, self.tile, self.mode,
+                                      lo, scale=self.spec[0])
             return self._finish(out, vector)
         if self.device.type != "cpu":
             raise ValueError(f"no route for device {self.device}")
         return self.plain(v)
 
-    def plain(self, v) -> torch.Tensor:
+    def plain(self, v):
         """The plain version on the points' device (the kernel's oracle)."""
         hi, lo, vector = self._sorted_rhs(v)
         out = banded_matvec_plain(self.spec, self.X0s, self.X1s, hi, self.windows, self.tile, self.mode, lo)

@@ -35,6 +35,7 @@ __all__ = [
     "ff_scale",
     "ff_exp",
     "ff_const",
+    "ff_split",
 ]
 
 
@@ -130,6 +131,13 @@ def ff_const(c: float, dtype):
     else:
         hi, lo = float(c), 0.0
     return hi, lo
+
+
+def ff_split(x, dtype=torch.float32):
+    """A wider (float64) tensor as the ff pair ``(hi, lo)`` of ``dtype``
+    tensors: ``hi`` its rounding, ``lo`` the rounding of the rest."""
+    hi = x.to(dtype)
+    return hi, (x - hi.to(x.dtype)).to(dtype)
 
 
 def ff_scale(x, scale: float):

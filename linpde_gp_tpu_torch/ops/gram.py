@@ -8,22 +8,26 @@ points then costs one ``exp`` per distinct ``(dim, kind, scale)`` and a
 nested Horner sweep per group.
 
 Routing: a CUDA tensor goes to the hand-written kernels of
-``csrc/gram.cu`` (through ``ops/_cuda.py``); a CPU tensor goes to the
-plain PyTorch version in this module (:func:`gram_plain`,
-:func:`gram_matvec_plain`).  There is no other route and no fallback.
-:func:`gram_matrix` takes a kernel object and routes through
-:func:`gram`.  K2 takes one of two routes by the number r of
-right-hand-side columns (``csrc/gram.cu``): one thread per output row for
-r <= 4, and for r > 4 a route that evaluates each pair once per block of
-64 to 256 columns.
+``csrc/gram.cuh``, compiled per spec structure (through ``ops/_cuda.py``);
+a CPU tensor goes to the plain PyTorch version in this module
+(:func:`gram_plain`, :func:`gram_matvec_plain`).  There is no other route
+and no fallback.  :func:`gram_matrix` takes a kernel object and routes
+through :func:`gram`.  K2 takes one of two routes by the number r of
+right-hand-side columns (``csrc/gram.cuh``): a few output rows per thread
+for r <= 4, and for r > 4 a route that evaluates each pair once per block
+of 64 to 256 columns.
 
 Modes (``config.py``): ``"plain"`` (float32), ``"ff"`` (float32
 float-float pairs, the JAX package's ``compensated=True``) and ``"f64"``
 (float64).  The ff Gram stores ``hi + lo``.  The ff matvec takes ``v`` as
-a tensor or as an ff pair ``(hi, lo)`` and carries every product and the
-sum in ff.  It departs from the TPU kernel here, which summed ``hi * v``
-and ``lo * v`` in f32. At N = 1e5 and noise 1e-3 these sums cancel by
-~5e7, and the f32 sum left CG unable to converge (PERF.md).
+a tensor or as an ff pair ``(hi, lo)``, carries every product and the sum
+past float32, and returns the ff pair ``(hi, lo)`` of the result (``hi``
+is its float32 rounding), on both routes and in the plain version.  It
+departs from the TPU kernel here, which summed ``hi * v`` and ``lo * v``
+in f32. At N = 1e5 and
+noise 1e-3 these sums cancel by ~5e7, and the f32 sum left CG unable to
+converge; rounding the result to f32 left the ff variance erring at first
+order in the CG residual (PERF.md, ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -279,27 +283,30 @@ def gram_plain(terms, X0, X1, mode=None) -> torch.Tensor:
     return out
 
 
-def gram_matvec_plain(spec, X0, X1, v, mode=None) -> torch.Tensor:
+def gram_matvec_plain(spec, X0, X1, v, mode=None):
     """Plain PyTorch version of K2 (``scale * K(X0, X1) @ v``) on any
-    device, in row blocks.  Mode ff takes ``v`` or an ff pair and forms
-    the product of the ff entries with it in float64 (the kernel carries
-    it in ff)."""
+    device, in row blocks.  Mode ff takes ``v`` or an ff pair, forms the
+    product of the ff entries with it and the sum in float64 (the kernel
+    carries them in ff) and returns the ff pair ``(hi, lo)`` of the
+    result; the other modes return one tensor."""
     mode = resolve_mode(mode)
     scale, terms = spec
     X0, X1 = _as_points(X0, mode), _as_points(X1, mode)
     (v, v_lo), vector = _as_rhs(v, X1, mode)
     if mode == "ff":
-        v64 = v.double() if v_lo is None else v.double() + v_lo.double()
+        v = v.double() if v_lo is None else v.double() + v_lo.double()
     groups = _collapse_terms(tuple(terms))
     n0, n1 = X0.shape[0], X1.shape[0]
-    out = torch.empty((n0, v.shape[1]), dtype=X0.dtype, device=X0.device)
+    out = torch.empty((n0, v.shape[1]), dtype=v.dtype, device=X0.device)
     starts, step = _row_blocks(n0, n1, X0.device)
     for s in starts:
         blk = _eval_block(groups, X0[s:s + step], X1, mode)
-        out[s:s + step] = (blk[0].double() + blk[1].double()) @ v64 if mode == "ff" else blk @ v
+        out[s:s + step] = (blk[0].double() + blk[1].double()) @ v if mode == "ff" else blk @ v
     if scale != 1.0:
         out = scale * out
-    return out[:, 0] if vector else out
+    if vector:
+        out = out[:, 0]
+    return ff.ff_split(out) if mode == "ff" else out
 
 
 # -- public entry points ---------------------------------------------------------
@@ -377,11 +384,12 @@ def gram_matrix(kernel, X0, X1=None, mode=None) -> torch.Tensor:
     return scale * out if scale != 1.0 else out
 
 
-def gram_matvec(spec, X0, X1, v, mode=None) -> torch.Tensor:
+def gram_matvec(spec, X0, X1, v, mode=None):
     """``scale * K(X0, X1) @ v`` without materializing ``K``, for a
     ``(scale, terms)`` spec.  ``v``: ``(n1,)`` or ``(n1, r)``, or in mode
-    ff also an ff pair ``(hi, lo)`` of those.  CUDA tensors launch K2;
-    CPU tensors take :func:`gram_matvec_plain`."""
+    ff also an ff pair ``(hi, lo)`` of those.  Mode ff returns the ff pair
+    ``(hi, lo)`` of the result (``hi``: its float32 rounding).  CUDA
+    tensors launch K2; CPU tensors take :func:`gram_matvec_plain`."""
     mode = resolve_mode(mode)
     X0, X1 = _as_points(X0, mode), _as_points(X1, mode)
     _check_same_device(X0, X1)
@@ -390,10 +398,11 @@ def gram_matvec(spec, X0, X1, v, mode=None) -> torch.Tensor:
 
         scale, terms = spec
         (v, v_lo), vector = _as_rhs(v, X1, mode)
-        out = _cuda.gram_matvec(_collapse_terms(tuple(terms)), X0, X1, v, mode, v_lo)
-        if scale != 1.0:
-            out = scale * out
-        return out[:, 0] if vector else out
-    if X0.device.type != "cpu":
+        out = _cuda.gram_matvec(_collapse_terms(tuple(terms)), X0, X1, v, mode, v_lo, scale=scale)
+        if vector:
+            out = (out[0][:, 0], out[1][:, 0]) if mode == "ff" else out[:, 0]
+    elif X0.device.type == "cpu":
+        out = gram_matvec_plain(spec, X0, X1, v, mode)
+    else:
         raise ValueError(f"no route for device {X0.device}")
-    return gram_matvec_plain(spec, X0, X1, v, mode)
+    return out

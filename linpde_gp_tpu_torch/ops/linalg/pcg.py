@@ -23,9 +23,15 @@ Differences from the JAX package:
 - No 16384-row chunking of the ``(n, m)`` products: it worked around a
   TPU compile service, and the whole ``(1e5, 8192)`` block fits on the
   card.
-- The matvec may return a float64 result for float32 state (the anchored
-  Schur operator subtracts its correction in float64); the CG splits it
-  into an ff pair instead of rounding it.
+- The matvec may return an ff pair, or a float64 result for float32
+  state (the anchored Schur operator subtracts its correction in
+  float64), which the CG splits into an ff pair instead of rounding it.
+  The preconditioner sees the ff residual ``(r_hi, r_lo)`` and may return
+  an ff pair (:class:`NystromPreconditioner` applies to ``hi + lo`` in its
+  factors' float64 and returns the result's ff pair), and the right-hand
+  side may be an ff pair (the variance's ``kxX`` from float64).  Each of
+  these three was an f32 rounding that left the ff variance erring at
+  first order in the CG residual (ROADMAP Queue 3).
 - :func:`pcg_block_ff` carries these fixes per column: ``||r_j||^2 =
   sum (hi + lo)^2``, the test on the current iterate, a zero column
   returns 0, a breakdown column stops with its last finite iterate, the
@@ -41,7 +47,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from ..ff import ff_add, ff_const, ff_mul, quick_two_sum, two_prod, two_sum
+from ..ff import ff_add, ff_const, ff_mul, ff_split, quick_two_sum, two_prod, two_sum
 from .chol import cholesky as robust_cholesky
 
 
@@ -99,13 +105,15 @@ def _ff_axpy(alpha_ff, x_ff, y_ff):
     return ff_add(y_ff, ff_mul(x_ff, alpha_ff))
 
 
-def _as_ff(K: torch.Tensor, dtype: torch.dtype):
-    """A matvec result as an ff pair in ``dtype``: ``(K, 0)``, or a wider
-    (float64) result split into ``hi + lo`` instead of rounded."""
+def _as_ff(K, dtype: torch.dtype):
+    """A matvec, preconditioner or right-hand side value as an ff pair in
+    ``dtype``: an ff pair as it is, ``(K, 0)``, or a wider (float64)
+    tensor split into ``hi + lo`` instead of rounded."""
+    if isinstance(K, tuple):
+        return K
     if K.dtype == dtype:
         return K, torch.zeros_like(K)
-    hi = K.to(dtype)
-    return hi, (K - hi.to(K.dtype)).to(dtype)
+    return ff_split(K, dtype)
 
 
 # -- CG ----------------------------------------------------------------------------
@@ -130,8 +138,7 @@ def _step_a(matvec, sigma_ff, x, p, r, rz):
 def _step_b(precond, r, r_old, p, rz_old):
     """Preconditioner apply, ``r.z`` and the Polak-Ribiere beta (clamped
     at 0, i.e. a restart), and the p update."""
-    z = r[0] if precond is None else precond(r[0])
-    zf = (z, torch.zeros_like(z))
+    zf = r if precond is None else _as_ff(precond(r), r[0].dtype)
     rz_new = ff_dot(r, zf)
     beta = ff_div(ff_sub(rz_new, ff_dot(zf, r_old)), rz_old)
     neg = beta[0] < 0  # stays on the device: no host sync here
@@ -152,22 +159,24 @@ def pcg_ff(
     preconditioned CG with float-float vector state.
 
     ``matvec((v_hi, v_lo))`` applies the unshifted ``K`` to an ff pair and
-    returns one tensor in ``b``'s dtype (or in float64, split into an ff
-    pair); a matvec that reads only ``v_hi`` drops ``K v_lo``, ~eps of
-    ``sum |K| |v|``.  ``precond(r)`` applies an
-    approximation of ``(K + sigma_sq I)^{-1}`` (``None``: identity).  All
-    state stays on ``b``'s device; the host reads one scalar per
+    returns an ff pair or one tensor in ``b``'s dtype (or in float64,
+    split into an ff pair); a matvec that reads only ``v_hi`` drops ``K
+    v_lo``, ~eps of ``sum |K| |v|``.  ``precond((r_hi, r_lo))`` applies an
+    approximation of ``(K + sigma_sq I)^{-1}`` (``None``: identity) and
+    returns the same kinds.  ``b`` is a tensor or an ff pair ``(hi, lo)``.
+    All state stays on ``b``'s device; the host reads one scalar per
     iteration.  The solution is ``x + x_lo`` of the result.
     """
-    dtype = b.dtype
-    zeros = torch.zeros_like(b)
-    b_norm = float(torch.linalg.vector_norm(b.to(torch.float64)))
+    b = _as_ff(b, b.dtype) if torch.is_tensor(b) else b
+    dtype = b[0].dtype
+    zeros = torch.zeros_like(b[0])
+    b_norm = float(torch.linalg.vector_norm(b[0].to(torch.float64) + b[1].to(torch.float64)))
     if b_norm == 0.0:
         return PCGResult(zeros, 0, 0.0, zeros)
-    sigma_ff = tuple(torch.tensor(c, dtype=dtype, device=b.device) for c in ff_const(float(sigma_sq), dtype))
+    sigma_ff = tuple(torch.tensor(c, dtype=dtype, device=zeros.device) for c in ff_const(float(sigma_sq), dtype))
     x = (zeros, zeros)
-    r = (b, zeros)
-    one = (torch.ones((), dtype=dtype, device=b.device), torch.zeros((), dtype=dtype, device=b.device))
+    r = b
+    one = (torch.ones((), dtype=dtype, device=zeros.device), torch.zeros((), dtype=dtype, device=zeros.device))
     p, rz = _step_b(precond, r, (zeros, zeros), (zeros, zeros), one)
     threshold2 = (tol * b_norm) ** 2
 
@@ -253,8 +262,7 @@ def _block_step_a(matvec, sigma_ff, X, P, R, rz, active):
 def _block_step_b(precond, R, R_old, P, rz_old, active):
     """The blocked ``_step_b``: preconditioner apply, per-column ``r.z``
     and the Polak-Ribiere beta (0 where frozen or negative), the P update."""
-    Z = R[0] if precond is None else precond(R[0])
-    Zf = (Z, torch.zeros_like(Z))
+    Zf = R if precond is None else _as_ff(precond(R), R[0].dtype)
     rz_new = ff_dot_cols(R, Zf)
     num = ff_sub(rz_new, ff_dot_cols(Zf, R_old))
     safe = (rz_old[0] != 0) & active
@@ -279,8 +287,10 @@ def pcg_block_ff(
     package, with the fixes of :func:`pcg_ff` per column).
 
     ``matvec((P_hi, P_lo))`` applies the unshifted ``K`` to an ``(n, r)``
-    ff pair and returns ``(n, r)`` in ``B``'s dtype or in float64;
-    ``precond`` takes and returns ``(n, r)``.  Column ``j`` stops when
+    ff pair and returns an ``(n, r)`` ff pair, or ``(n, r)`` in ``B``'s
+    dtype or in float64; ``precond`` takes an ``(n, r)`` ff pair and
+    returns the same kinds.  ``B`` is ``(n, r)`` or an ff pair of those.
+    Column ``j`` stops when
     ``||r_j|| <= tol ||b_j||`` (on the current iterate), at breakdown
     (``r_j.z_j <= 0``, or a non-finite residual, which returns the last
     finite iterate) or at ``maxiter``; a stopped column is frozen by masked
@@ -289,14 +299,15 @@ def pcg_block_ff(
     x_lo`` of the result; ``relative_residual`` is the largest column's,
     ``iterations`` the loop's count.
     """
-    dtype = B.dtype
-    zeros = torch.zeros_like(B)
-    b_norm2 = torch.sum(B.to(torch.float64) ** 2, 0)
+    B = _as_ff(B, B.dtype) if torch.is_tensor(B) else B
+    dtype = B[0].dtype
+    zeros = torch.zeros_like(B[0])
+    b_norm2 = torch.sum((B[0].to(torch.float64) + B[1].to(torch.float64)) ** 2, 0)
     threshold2 = tol**2 * b_norm2
-    sigma_ff = tuple(torch.tensor(c, dtype=dtype, device=B.device) for c in ff_const(float(sigma_sq), dtype))
+    sigma_ff = tuple(torch.tensor(c, dtype=dtype, device=zeros.device) for c in ff_const(float(sigma_sq), dtype))
     X = (zeros, zeros)
-    R = (B, zeros)
-    ones = torch.ones(B.shape[1], dtype=dtype, device=B.device)
+    R = B
+    ones = torch.ones(zeros.shape[1], dtype=dtype, device=zeros.device)
     active = b_norm2 > 0
     P, rz = _block_step_b(precond, R, (zeros, zeros), (zeros, zeros), (ones, torch.zeros_like(ones)), active)
     rn2 = b_norm2
@@ -315,7 +326,7 @@ def pcg_block_ff(
         active = moved & (rn2 > threshold2) & (rz[0] > 0)
         k += 1
     b_norm2 = torch.where(b_norm2 > 0, b_norm2, 1.0)
-    relres = float(torch.max(torch.sqrt(rn2 / b_norm2))) if B.shape[1] else 0.0
+    relres = float(torch.max(torch.sqrt(rn2 / b_norm2))) if zeros.shape[1] else 0.0
     x_hi, x_lo = two_sum(X[0], X[1])
     return PCGResult(x_hi, k, relres, x_lo)
 
@@ -336,13 +347,27 @@ class NystromPreconditioner(NamedTuple):
     chol_C: torch.Tensor  # (m, m) lower Cholesky of delta I + B^T B
     delta: torch.Tensor  # lambda_m + sigma^2
 
-    def __call__(self, r: torch.Tensor) -> torch.Tensor:
-        # Applied in the factors' precision, returned in the residual's.
-        vector = r.ndim == 1
-        rr = (r[:, None] if vector else r).to(self.B.dtype)
+    def __call__(self, r):
+        """``P^{-1} r`` for a tensor ``r`` (``(n,)`` or ``(n, k)``), returned
+        in its dtype, or for an ff pair ``(hi, lo)``: applied to ``hi + lo``
+        in the factors' precision where it is wider than the pair's (float64
+        factors, float32 pairs: mode ff), else to ``hi``, and returned as
+        the result's ff pair in ``hi``'s dtype (a float64 result split, not
+        rounded)."""
+        pair = isinstance(r, tuple)
+        r_dtype = r[0].dtype if pair else r.dtype
+        if pair and torch.finfo(self.B.dtype).eps < torch.finfo(r_dtype).eps:
+            rr = r[0].to(self.B.dtype) + r[1].to(self.B.dtype)
+        else:
+            rr = (r[0] if pair else r).to(self.B.dtype)
+        vector = rr.ndim == 1
+        if vector:
+            rr = rr[:, None]
         w = torch.cholesky_solve(self.B.T @ rr, self.chol_C)
-        out = ((rr - self.B @ w) / self.delta).to(r.dtype)
-        return out[:, 0] if vector else out
+        out = (rr - self.B @ w) / self.delta
+        if vector:
+            out = out[:, 0]
+        return _as_ff(out, r_dtype) if pair else out.to(r_dtype)
 
 
 def _lam1(A, iters=16):

@@ -135,13 +135,15 @@ def test_f32_modes_against_f64(case, mode):
     ref = make_banded_matvec(spec, X0.astype(np.float64), X1.astype(np.float64), mode="f64")(torch.from_numpy(v).double())
     mv = make_banded_matvec(spec, X0, X1, mode=mode)
     got = mv(torch.from_numpy(v))
+    if mode == "ff":  # the ff pair; hi is the f32 rounding of the result
+        got = got[0]
     assert got.dtype == torch.float32
     err = (got.double() - ref).abs().max().item() / ref.abs().max().item()
     assert err <= _F32_TOL[mode]
     # An ff right-hand side (hi, lo) is taken in mode ff only.
     if mode == "ff":
         lo = torch.from_numpy((v.astype(np.float64) * 1e-9).astype(np.float32))
-        got2 = mv((torch.from_numpy(v), lo))
+        got2 = mv((torch.from_numpy(v), lo))[0]
         ref2 = ref + make_banded_matvec(spec, X0.astype(np.float64), X1.astype(np.float64), mode="f64")(lo.double())
         assert (got2.double() - ref2).abs().max().item() / ref2.abs().max().item() <= _F32_TOL[mode]
     else:
@@ -183,8 +185,10 @@ def test_points_at_exactly_the_radius(mode):
             assert cols.size and lo <= cols.min() and cols.max() < hi
     assert mv.windows.tolist() == band_windows(c0, c1, radius, 32).tolist()
     v = torch.from_numpy(_rhs(X1.shape[0], 1).astype(dt))
-    got = mv(v).double()
-    dense = gram_matvec(spec, X0, X1, v, mode).double()
+    got, dense = mv(v), gram_matvec(spec, X0, X1, v, mode)
+    if mode == "ff":  # the f32 roundings of the two ff pairs
+        got, dense = got[0], dense[0]
+    got, dense = got.double(), dense.double()
     # Same pairs and values; only the summation order differs.
     bound = {"plain": 1e-6, "ff": 1e-15, "f64": 1e-15}[mode]
     assert (got - dense).abs().max().item() <= bound * dense.abs().max().item()
@@ -218,7 +222,12 @@ def test_spec_table_holds_the_wendland_specs():
 
     groups = _collapse_terms(heat_spec(2)[1])
     assert (len(groups), sum(np.asarray(C).size for _, _, C in groups)) == (2, 106)
-    s = _cuda.spec_table(groups)
-    assert (s.ndims, s.ngroups, s.nfactors) == (2, 2, 2)
+    st = _cuda.structure_of(groups)
+    assert (st.nd, len(st.groups), len(st.factors)) == (2, 2, 2)
+    assert all(kind == "wendland" for _, kind in st.factors)
+    packed = np.asarray(_cuda.spec_values(groups).coef)
+    want = np.concatenate([np.asarray(C).reshape(-1) for _, _, C in groups])
+    np.testing.assert_array_equal(np.sort(packed[:106]), np.sort(want))
+    assert not packed[106:].any()
     with pytest.raises(ValueError, match="coefficients"):
-        _cuda.spec_table(_collapse_terms(heat_spec(3)[1]))
+        _cuda.structure_of(_collapse_terms(heat_spec(3)[1]))

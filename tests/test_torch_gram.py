@@ -104,6 +104,8 @@ def test_gram_matvec_matches_pallas(mode, r):
         np.float64,
     )
     got = gram_matvec(OBS, torch.from_numpy(X0), torch.from_numpy(X1), torch.from_numpy(v), mode)
+    if mode == "ff":  # the ff pair; hi is the f32 rounding of the result
+        got = got[0]
     assert got.shape == v.shape[:0] + ((384, r) if r > 1 else (384,))
     err = np.max(np.abs(got.double().numpy() - want)) / np.max(np.abs(want))
     assert err <= _MATVEC_TOL[mode]
@@ -117,7 +119,7 @@ def test_cross_spec_matvec_matches_pallas():
         pallas_gram_matvec(terms, jnp.asarray(X0), jnp.asarray(X1), jnp.asarray(v), interpret=True, compensated=True),
         np.float64,
     )
-    got = gram_matvec(SPECS["cross"], torch.from_numpy(X0), torch.from_numpy(X1), torch.from_numpy(v), "ff")
+    got, _ = gram_matvec(SPECS["cross"], torch.from_numpy(X0), torch.from_numpy(X1), torch.from_numpy(v), "ff")
     assert np.max(np.abs(got.double().numpy() - want)) <= 3e-6 * np.max(np.abs(want))
 
 
@@ -146,7 +148,7 @@ def test_compensated_matvec_full_precision():
     v = np.random.default_rng(3).standard_normal(768).astype(np.float32)
     ref = _f64_gram(OBS, X, X) @ v.astype(np.float64)
     Xt, vt = torch.from_numpy(X), torch.from_numpy(v)
-    out = gram_matvec(OBS, Xt, Xt, vt, "ff").double().numpy()
+    out = gram_matvec(OBS, Xt, Xt, vt, "ff")[0].double().numpy()
     err = np.max(np.abs(out - ref)) / np.max(np.abs(ref))
     # f32 product-sum rounding only: ~sqrt(n) * eps32.
     assert err < 3e-6
@@ -209,37 +211,123 @@ def test_no_route_for_other_devices(fn):
             gram_matvec(OBS, X, X, torch.empty(8, device="meta"), "f64")
 
 
-# -- the kernels' spec table ----------------------------------------------------------
+# -- the kernels' generated modules ---------------------------------------------------
 
 
 def test_spec_table_packs_the_heat_spec():
-    """The table the CUDA kernels read: one factor per distinct
-    (dim, kind, scale), C-order coefficient tensors, f32 hi/lo splits."""
-    groups = _collapse_terms(OBS[1])
-    s = _cuda.spec_table(groups)
-    assert (s.ndims, s.ngroups, s.nfactors) == (2, len(groups), 2)
+    """What the CUDA kernels compile in and read: one factor per distinct
+    (dim, kind, scale), the groups sharing the heat spec's one envelope,
+    C-order coefficient tensors in the structure's group order (times the
+    outer scale), f32 hi/lo splits."""
+    scale, terms = OBS
+    groups = _collapse_terms(terms)
+    st = _cuda.structure_of(groups)
+    s = _cuda.spec_values(groups, scale)
+    assert (st.nd, len(st.groups), len(st.factors)) == (2, len(groups), 2)
+    assert st.factors == ((0, "matern"), (1, "matern")) and st.envelopes() == [(0, len(groups))]
+    by_key = {(parity, np.asarray(C).shape): (dims_key, np.asarray(C)) for dims_key, parity, C in groups}
     off = 0
-    for g, (dims_key, parity, C) in enumerate(groups):
-        C = np.asarray(C)
-        assert list(s.grp_deg[g])[:2] == list(C.shape)
-        assert list(s.grp_parity[g])[:2] == list(parity)
-        assert s.grp_off[g] == off
-        for i, (kind, sc) in enumerate(dims_key):
-            f = s.grp_fac[g][i]
-            assert (s.fac_dim[f], s.fac_kind[f], s.fac_scale[f]) == (i, 0, sc)
-        flat = C.reshape(-1)
+    for fac, parity, shape in st.groups:
+        dims_key, C = by_key[(parity, shape)]
+        for i, f in enumerate(fac):
+            assert st.factors[f] == (i, dims_key[i][0]) and s.fac_scale[f] == dims_key[i][1]
+        flat = scale * C.reshape(-1)
         np.testing.assert_array_equal(np.asarray(s.coef[off:off + flat.size]), flat)
         hi = np.asarray(s.coef_hi[off:off + flat.size], np.float64)
         lo = np.asarray(s.coef_lo[off:off + flat.size], np.float64)
         np.testing.assert_array_equal(hi, flat.astype(np.float32))
         assert np.max(np.abs(hi + lo - flat)) <= 1e-14 * np.max(np.abs(flat))
         off += flat.size
+    src = _cuda.structure_source(st)
+    assert "static constexpr int grp_deg[2][2] = {{2, 3}, {2, 3}};" in src and src.endswith('#include "module.cuh"\n')
 
 
-def test_spec_table_rejects_specs_beyond_the_caps():
-    five_dims = ((("matern", 1.0),) * 5, (0,) * 5, (((((1.0,),),),),))
-    with pytest.raises(ValueError, match="input dimensions"):
-        _cuda.spec_table((five_dims,))
-    many_groups = tuple(((("matern", float(k + 1)),), (0,), (1.0,)) for k in range(9))
-    with pytest.raises(ValueError, match="groups"):
-        _cuda.spec_table(many_groups)
+@pytest.mark.parametrize("case", ["dims", "groups", "coefficients", "factors"])
+def test_spec_table_rejects_specs_beyond_the_caps(case):
+    """The generator raises on a spec beyond the kernels' caps instead of
+    truncating it."""
+    if case == "dims":
+        bad = ((("matern", 1.0),) * 5, (0,) * 5, (((((1.0,),),),),))
+        groups, match = (bad,), "input dimensions"
+    elif case == "groups":
+        groups = tuple(((("matern", float(k + 1)),), (0,), (1.0,)) for k in range(9))
+        match = "groups"
+    elif case == "coefficients":
+        groups, match = (((("matern", 1.0),), (0,), (1.0,) * 129),), "coefficients"
+    else:
+        groups = tuple(((("matern", float(k + 1)), ("matern", float(k + 10))), (0, 0), ((1.0,),)) for k in range(5))
+        match = "factors"
+    with pytest.raises(ValueError, match=match):
+        _cuda.structure_of(groups)
+
+
+def test_heat_obs_and_cross_share_a_structure():
+    """``H k H*`` and ``k H*`` compile to one module (their groups differ in
+    coefficients, not in structure); the Wendland specs to others."""
+    w1 = lgt.kernels.WendlandCovarianceFunction((), k=2, lengthscales=0.05)
+    w2 = lgt.kernels.TensorProduct(
+        lgt.kernels.WendlandCovarianceFunction((), k=2, lengthscales=0.08),
+        lgt.kernels.WendlandCovarianceFunction((), k=2, lengthscales=0.3),
+    )
+    keys = {name: _cuda.structure_of(_collapse_terms(SPECS[name][1])).key for name in ("obs", "cross")}
+    assert keys["obs"] == keys["cross"]
+    wkeys = {_cuda.structure_of(_collapse_terms(kernel_term_specs(k)[1])).key for k in (w1, w2)}
+    assert len(wkeys) == 2 and keys["obs"] not in wkeys
+
+
+@pytest.mark.parametrize("mode", ["plain", "ff", "f64"])
+@pytest.mark.parametrize("wide", [False, True])
+def test_pair_ops_are_positive(mode, wide):
+    """The per-pair operation counts the bounds rest on: positive on the
+    mode's pipe, none on the other precision's, growing with r."""
+    st = _cuda.structure_of(_collapse_terms(OBS[1]))
+    r = 256 if wide else 1
+    ops = _cuda.pair_ops(st, mode, r, wide)
+    main = "fp64" if mode == "f64" else "fp32"
+    assert ops[main] > 0 and all(v >= 0 for v in ops.values())
+    assert (ops["mufu"] > 0) == (mode == "plain")
+    if not wide:
+        assert ops["fp32" if mode == "f64" else "fp64"] == 0
+        assert sum(_cuda.pair_ops(st, mode, 4).values()) > sum(ops.values())
+
+
+@pytest.mark.parametrize("row_blocks,n1", [(1, 100_000), (16, 100_000), (391, 100_000), (782, 100_000),
+                                           (3, 1000), (3, 129), (5, 128), (3, 0), (40, 12_345)])
+def test_column_split_covers_each_column_once(row_blocks, n1):
+    """The narrow route's column split: chunks of whole tiles, in order,
+    covering [0, n1) exactly once; no split once the rows fill the card."""
+    sms = 132
+    splits, chunk = _cuda.column_split(row_blocks, n1, sms)
+    ranges = [(z * chunk, min(n1, (z + 1) * chunk)) for z in range(splits)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == n1
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert all(lo < hi for lo, hi in ranges) or n1 == 0
+    assert splits == 1 or chunk % _cuda.NARROW_TILE == 0
+    if row_blocks >= _cuda.SPLIT_BLOCKS_PER_SM * sms:
+        assert splits == 1
+    elif n1 > _cuda.NARROW_TILE:
+        # whole tiles per chunk: at least half the blocks aimed at
+        assert splits > 1 and 2 * row_blocks * splits >= min(_cuda.SPLIT_BLOCKS_PER_SM * sms,
+                                                              row_blocks * -(-n1 // _cuda.NARROW_TILE))
+
+
+@pytest.mark.parametrize("r", [1, 3])
+def test_ff_matvec_plain_returns_a_pair(r):
+    """Mode ff's plain K2 returns the ff pair of the f64 product of the ff
+    entries: hi + lo matches the JAX package's f64 ``_dense_terms_matvec``
+    on the same (float32-representable) points within 1e-12 relative; hi
+    alone is its f32 rounding."""
+    from linpde_gp_tpu.ops.pallas_gram import _dense_terms_matvec
+    from linpde_gp_tpu_torch.ops.gram import gram_matvec_plain
+
+    scale, terms = OBS
+    X0, X1 = _points(96, 40), _points(160, 41)
+    v = np.random.default_rng(42).standard_normal((160, r) if r > 1 else 160)
+    want = scale * np.asarray(_dense_terms_matvec(terms, jnp.asarray(X0, jnp.float64), jnp.asarray(X1, jnp.float64),
+                                                  jnp.asarray(v)))
+    hi, lo = gram_matvec_plain(OBS, torch.from_numpy(X0), torch.from_numpy(X1),
+                               (torch.from_numpy(v).float(), torch.from_numpy(v - v.astype(np.float32)).float()), "ff")
+    assert hi.dtype == lo.dtype == torch.float32 and hi.shape == (96,) + v.shape[1:]
+    got = hi.double().numpy() + lo.double().numpy()
+    assert np.max(np.abs(got - want)) <= 1e-12 * np.max(np.abs(want))
+    np.testing.assert_array_equal(hi.numpy(), got.astype(np.float32))

@@ -26,6 +26,7 @@ _MODULES = [
     "linpde_gp_tpu_torch.ops.ff",
     "linpde_gp_tpu_torch.ops.gram",
     "linpde_gp_tpu_torch.ops._cuda",
+    "linpde_gp_tpu_torch.k2_probe",
     "linpde_gp_tpu_torch.ops.linalg.chol",
     "linpde_gp_tpu_torch.ops.linalg.pcg",
     "linpde_gp_tpu_torch.models",

@@ -153,9 +153,9 @@ def test_wendland_var_takes_the_banded_route():
     widths = []
     plain = reg._banded.plain
 
-    def spy(v):
+    def spy(v, **kw):
         widths.append(v.shape[1] if v.ndim == 2 else 1)
-        return plain(v)
+        return plain(v, **kw)
 
     reg._banded.plain = spy
     var = reg.var(xq, block_size=16).numpy()
