@@ -13,13 +13,14 @@ Phases, each printed as it finishes:
               (``ops/_cuda.build_modules``: one nvcc per module, all started
               together) into ``build/`` and loads them; prints each module's
               structure and seconds, the total, and the registers and spills
-              of every narrow-route instantiation.
+              of every narrow-route (per RC) and multi-column (per RW)
+              instantiation.
 3. kernels  - each kernel in the modes plain, ff and f64 against its plain
               PyTorch version on the card: K1 (Gram) and K2 (Gram matvec) on
               the heat benchmark specs at shapes up to 2048, K2 with r in
-              {1, 4, 48, 64, 100, 256} right-hand-side columns (r > 4 is
+              {1, 4, 5, 48, 64, 100, 256} right-hand-side columns (r > 4 is
               the multi-column route, whose launches are counted apart, at
-              RW = 64, 64, 128, 256 columns a block); the
+              RW = 64, 64, 64, 128, 256 columns a block); the
               banded matvec on two compactly supported specs (the 1-D
               Wendland experiment kernel and a 2-D d/dx0 Wendland tensor
               product) at 3000 x 4000 unsorted points with the same r, also
@@ -32,8 +33,10 @@ Phases, each printed as it finishes:
               matvec at N x N, r in {1, 4, 256}, on the Wendland data,
               beside dense K2 on the same spec at r = 1, with the band
               fraction.  The log (not the kernels line) also gives 64 x the
-              r = 4 time: an estimate of what the r <= 4 route would take
-              at r = 256.
+              r = 4 time, an estimate of what the r <= 4 route would take
+              at r = 256, and a product-only yardstick: torch.matmul of a
+              float64 (8192 x 32768) @ (32768 x 256), the FP64 tensor-core
+              rate cuBLAS reaches on this card.
 5. main     - every path through the library's entry points
               (``IterativeGPRegressor(prior, X, Y, L=...)``,
               ``.representer_weights``, ``.mean`` and ``.var``), modes ff
@@ -113,13 +116,16 @@ KERNELS = {
 #: FMA is one instruction of two flops, so FP32 67 and FP64 33.5 TFLOP/s
 #: outside the tensor cores are 33.5e12 and 16.75e12 instructions a second;
 #: MUFU (expf's ex2) 16 per SM and clock, 132 SMs at the 1.98 GHz boost
-#: clock; HBM3 3.35 TB/s.
-PEAK = {"fp32": 67e12 / 2, "fp64": 33.5e12 / 2, "mufu": 16 * 132 * 1.98e9, "bytes": 3.35e12}
+#: clock; HBM3 3.35 TB/s.  The FP64 tensor cores (the multi-column route's
+#: product, DMMA) run 67 TFLOP/s (the same data sheet, at 700 W): 33.5e12
+#: float64 FMAs a second.
+PEAK = {"fp32": 67e12 / 2, "fp64": 33.5e12 / 2, "mufu": 16 * 132 * 1.98e9, "fp64_tc": 67e12 / 2, "bytes": 3.35e12}
 WENDLAND_RANK = 1024
 #: Right-hand-side widths of the kernel checks: the r <= 4 route and the
-#: multi-column route at each of its block widths RW = 64 (r = 48 ragged,
-#: r = 64 the anchored variance's block), 128 (r = 100 ragged) and 256.
-R_CHECK = (1, 4, 48, 64, 100, 256)
+#: multi-column route at each of its block widths RW = 64 (r = 5, odd: V's
+#: rows are copied 8 bytes at a time; r = 48 ragged; r = 64 the anchored
+#: variance's block), 128 (r = 100 ragged) and 256.
+R_CHECK = (1, 4, 5, 48, 64, 100, 256)
 #: A spec whose absolute-term kernel (:func:`abs_terms`) exceeds its
 #: kernel by more than this, summed against |v| (the 2-D Wendland
 #: derivative kernel: 1.4e4; the 1-D Wendland kernel: 84), cancels in its
@@ -431,8 +437,11 @@ def phase_build():
         usage = _cuda.ptxas_usage(b["log"])
         regs += [u.get("registers", 0) for u in usage.values()]
         spills += [u.get("spill_stores", 0) for u in usage.values()]
-        # The narrow route's instantiations: registers (spill stores) per mode and RC.
-        for kernel in ("gram_matvec_kernel", "banded_matvec_kernel"):
+        # Registers (spill stores) per mode: the narrow route's instantiations
+        # per RC, the multi-column route's per RW.
+        for kernel, what in (("gram_matvec_kernel", "RC = 1, 2, 4"), ("banded_matvec_kernel", "RC = 1, 2, 4"),
+                             ("gram_matmat_kernel", "RW = 64, 128, 256"),
+                             ("banded_matmat_kernel", "RW = 64, 128, 256")):
             per = {}
             for name, u in usage.items():
                 m = re.search(kernel + r"<[^,]+, lgt::(\w+(?:<\w+>)?), (?:\(int\))?(\d+)>", name)
@@ -440,7 +449,7 @@ def phase_build():
                     mode = {"PlainArith<float>": "plain", "PlainArith<double>": "f64", "FFArith": "ff"}[m.group(1)]
                     per.setdefault(mode, []).append(
                         (int(m.group(2)), f"{u.get('registers')}({u.get('spill_stores')})"))
-            log(f"    {kernel} registers (spill stores, B) at RC = 1, 2, 4: "
+            log(f"    {kernel} registers (spill stores, B) at {what}: "
                 + "; ".join(f"{mode} " + " ".join(v for _, v in sorted(per[mode])) for mode in sorted(per)))
     (_cuda.BUILD_DIR / "nvcc.log").write_text("".join(logs))
     log(f"ptxas: {len(regs)} kernels, registers {min(regs, default=0)}..{max(regs, default=0)}, "
@@ -525,7 +534,7 @@ def phase_kernels(specs, k0, device="cuda"):
                     check(e_pair <= ROW_BOUND, f"K2 {name} r={r} ff pair hi + lo vs the f64 product: "
                           f"{e_pair:.3g} eps sum_j|k_ij v_j| <= {ROW_BOUND:g}")
             wide = _cuda.launches["gram_matvec_wide"] - wide0
-            want = 0 if r in (1, 4) else 3  # one launch per mode on the multi-column route for r >= 48
+            want = 0 if r in (1, 4) else 3  # one launch per mode on the multi-column route for r > 4
             check(wide == want, f"K2 {name} r={r}: {wide} launches of the multi-column route, {want} expected")
     log(f"kernel launches in this phase: {dict(_cuda.launches)}")
 
@@ -627,7 +636,7 @@ def phase_banded_kernels(wspecs, device="cuda"):
                     check(e2 <= 0.5 * eps * absum, f"{tag} ff pair rhs vs f64 product: "
                           f"{e2 / (eps * absum):.3g} eps sum|k v| <= 0.5")
             wide = _cuda.launches["banded_matvec_wide"] - wide0
-            want = 0 if r in (1, 4) else 4  # the three modes and the ff pair rhs, for r >= 48
+            want = 0 if r in (1, 4) else 4  # the three modes and the ff pair rhs, for r > 4
             check(wide == want, f"banded {name} r={r}: {wide} launches of the multi-column route, {want} expected")
 
             tpu = scale * (K_hi @ v32 + K_lo @ v32)
@@ -660,6 +669,16 @@ def phase_timing(specs, n, nq, rank):
 
     spec, cross = specs["obs"], specs["cross"]
     scale, terms = spec
+    # The product alone, as cuBLAS runs it on this card's FP64 tensor cores:
+    # a yardstick for the multi-column route's DMMA product (log only; no
+    # PyTorch call computes the kernels' function).
+    A = torch.randn(8192, 32768, dtype=torch.float64, device="cuda")
+    B = torch.randn(32768, 256, dtype=torch.float64, device="cuda")
+    torch.matmul(A, B)
+    ms, _ = timed(lambda: torch.matmul(A, B), reps=5)
+    log(f"  yardstick: torch.matmul f64 (8192 x 32768) @ (32768 x 256): {ms:.3f} ms, "
+        f"{2 * 8192 * 32768 * 256 / ms / 1e9:.2f} TFLOP/s (FP64 tensor-core peak 67)")
+    del A, B
     X, _, Xq = bench_data(n, nq)
     idx = landmark_indices(n, rank)
     v_np = np.random.default_rng(2).standard_normal(n)

@@ -23,9 +23,10 @@
 // and lo*v in f32, which cancels by up to ~5e7 at N = 1e5.  That walk
 // serves r <= 4.  For r > 4, banded_matmat_kernel walks the same window with
 // K2's multi-column route (gram_eval.cuh::matmat_rows): each pair once per
-// block of RW >= 64 columns, the product in shared memory.  Its blocks hold
-// kMatmatRows rows and read the window of the tile-row block that contains
-// them (tile is a multiple of kMatmatRows).
+// block of RW >= 64 columns into shared memory, the product on the FP64
+// tensor cores.  Its blocks hold kMatmatRows rows and read the window of the
+// tile-row block that contains them (tile is a multiple of kMatmatRows);
+// depth tiles start at the window's lo, and the last one is ragged.
 //
 // What bounds it on the H100: arithmetic, as K2, over band_fraction * n0 * n1
 // pairs instead of n0 * n1 (~10 % at N = 1e5 and radius 0.05 on [0, 1]).
@@ -51,27 +52,17 @@ __global__ void banded_matvec_kernel(const __grid_constant__ SpecValues s, const
   matvec_rows<S, A, RC>(s, x0t, x1t, v, v_lo, out, out_lo, n0, n1, r, blockIdx.x * tile, lo, hi);
 }
 
+// The multi-column route: kMatmatRows rows per block, in the window of the
+// tile-row block that holds them; RW columns from blockIdx.y * RW; v is the
+// (n1, r) float64 panel.
 template <class S, class A, int RW>
-__global__ void __launch_bounds__(kMatmatThreads)
+__global__ void __launch_bounds__(kMatmatThreads<RW>, kMatmatMinBlocks<RW>)
     banded_matmat_kernel(const __grid_constant__ SpecValues s, const typename A::Real* __restrict__ x0t,
-                         const typename A::Real* __restrict__ x1t, const typename A::Real* __restrict__ v,
-                         const typename A::Real* __restrict__ v_lo, typename A::Real* __restrict__ out,
-                         typename A::Real* __restrict__ out_lo, const int* __restrict__ win, int n0, int n1, int r,
-                         int tile) {
+                         const typename A::Real* __restrict__ x1t, const double* __restrict__ v,
+                         typename A::Real* __restrict__ out, typename A::Real* __restrict__ out_lo,
+                         const int* __restrict__ win, int n0, int n1, int r, int tile) {
   const int b = blockIdx.x * kMatmatRows / tile;
-  matmat_rows<S, A, RW>(s, x0t, x1t, v, v_lo, out, out_lo, n0, n1, r, win[2 * b], win[2 * b + 1]);
-}
-
-// The same, held to two blocks per SM (gram_eval.cuh::kMatmatTwoBlocks).
-template <class S, class A, int RW>
-__global__ void __launch_bounds__(kMatmatThreads, 2)
-    banded_matmat_kernel_2(const __grid_constant__ SpecValues s, const typename A::Real* __restrict__ x0t,
-                           const typename A::Real* __restrict__ x1t, const typename A::Real* __restrict__ v,
-                           const typename A::Real* __restrict__ v_lo, typename A::Real* __restrict__ out,
-                           typename A::Real* __restrict__ out_lo, const int* __restrict__ win, int n0, int n1,
-                           int r, int tile) {
-  const int b = blockIdx.x * kMatmatRows / tile;
-  matmat_rows<S, A, RW>(s, x0t, x1t, v, v_lo, out, out_lo, n0, n1, r, win[2 * b], win[2 * b + 1]);
+  matmat_rows<S, A, RW>(s, x0t, x1t, v, out, out_lo, n0, n1, r, win[2 * b], win[2 * b + 1]);
 }
 
 template <class S, class A, int RC>
@@ -88,43 +79,37 @@ cudaError_t launch_banded_rc(const SpecValues& s, const void* x0t, const void* x
 }
 
 template <class S, class A, int RW>
-cudaError_t launch_banded_matmat_rw(const SpecValues& s, const void* x0t, const void* x1t, const void* v,
-                                    const void* v_lo, void* out, void* out_lo, const int* win, int n0, int n1, int r,
-                                    int tile, cudaStream_t stream) {
+cudaError_t launch_banded_matmat_rw(const SpecValues& s, const void* x0t, const void* x1t, const void* v, void* out,
+                                    void* out_lo, const int* win, int n0, int n1, int r, int tile,
+                                    cudaStream_t stream) {
   using T = typename A::Real;
-  const auto kernel = [] {  // only the launched copy is instantiated
-    if constexpr (kMatmatTwoBlocks<A, RW>) {
-      return banded_matmat_kernel_2<S, A, RW>;
-    } else {
-      return banded_matmat_kernel<S, A, RW>;
-    }
-  }();
-  const size_t smem = matmat_smem_bytes<A, S::nd, RW>();
+  const auto kernel = banded_matmat_kernel<S, A, RW>;
+  const size_t smem = matmat_smem_bytes<RW>();
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((n0 + kMatmatRows - 1) / kMatmatRows, (r + RW - 1) / RW);
-  kernel<<<grid, kMatmatThreads, smem, stream>>>(s, static_cast<const T*>(x0t), static_cast<const T*>(x1t),
-                                                 static_cast<const T*>(v), static_cast<const T*>(v_lo),
-                                                 static_cast<T*>(out), static_cast<T*>(out_lo), win, n0, n1, r, tile);
+  kernel<<<grid, kMatmatThreads<RW>, smem, stream>>>(s, static_cast<const T*>(x0t), static_cast<const T*>(x1t),
+                                                     static_cast<const double*>(v), static_cast<T*>(out),
+                                                     static_cast<T*>(out_lo), win, n0, n1, r, tile);
   return cudaGetLastError();
 }
 
 // wide = 0: the narrow walk, RC the narrowest of 1, 2, 4 that holds r;
 // wide = 1: the multi-column route, RW the narrowest of 64, 128, 256 that
-// holds r (256 above it).  The caller (ops/_cuda.py) picks the route.
+// holds r (256 above it), v the (n1, r) float64 panel and v_lo null; tile
+// must be a multiple of kMatmatRows.  The caller (ops/_cuda.py) picks the
+// route and checks the tile first.
 template <class S, class A>
 cudaError_t launch_banded(const SpecValues& s, const void* x0t, const void* x1t, const void* v, const void* v_lo,
                           void* out, void* out_lo, const int* win, int n0, int n1, int r, int tile, int wide,
                           cudaStream_t stream) {
-  if (wide) {
-    if (tile % kMatmatRows != 0) return cudaErrorInvalidValue;
-    if (r <= 64) {
-      return launch_banded_matmat_rw<S, A, 64>(s, x0t, x1t, v, v_lo, out, out_lo, win, n0, n1, r, tile, stream);
-    }
+  if (wide) {  // v: the float64 panel, no lo plane
+    if (tile % kMatmatRows != 0 || v_lo != nullptr) return cudaErrorInvalidValue;
+    if (r <= 64) return launch_banded_matmat_rw<S, A, 64>(s, x0t, x1t, v, out, out_lo, win, n0, n1, r, tile, stream);
     if (r <= 128) {
-      return launch_banded_matmat_rw<S, A, 128>(s, x0t, x1t, v, v_lo, out, out_lo, win, n0, n1, r, tile, stream);
+      return launch_banded_matmat_rw<S, A, 128>(s, x0t, x1t, v, out, out_lo, win, n0, n1, r, tile, stream);
     }
-    return launch_banded_matmat_rw<S, A, 256>(s, x0t, x1t, v, v_lo, out, out_lo, win, n0, n1, r, tile, stream);
+    return launch_banded_matmat_rw<S, A, 256>(s, x0t, x1t, v, out, out_lo, win, n0, n1, r, tile, stream);
   }
   if (r == 1) return launch_banded_rc<S, A, 1>(s, x0t, x1t, v, v_lo, out, out_lo, win, n0, n1, r, tile, stream);
   if (r == 2) return launch_banded_rc<S, A, 2>(s, x0t, x1t, v, v_lo, out, out_lo, win, n0, n1, r, tile, stream);

@@ -15,9 +15,10 @@
 // takes an ff right-hand side (hi and lo planes), carries each product and
 // the row sum in ff and returns the ff pair.  For r > 4, gram_matmat_kernel
 // (gram_eval.cuh::matmat_rows) evaluates each pair once per block of RW >= 64
-// columns into shared memory and multiplies the tile by V's panel there, as
-// the TPU body does; its ff product and sum are float64 from hi + lo and
-// v + v_lo, returned as their f32 split.
+// columns into shared memory and multiplies the tile by V's float64 panel on
+// the FP64 tensor cores, as the TPU body multiplies a tile by its panel; its
+// ff product and sum are float64 from hi + lo and v + v_lo, returned as their
+// f32 split.
 //
 // What bounds them on the H100: arithmetic (gram_eval.cuh gives the counts
 // and what the narrow route's design does about them).  K2 reads O(n0 + n1 r)
@@ -72,24 +73,14 @@ __global__ void __launch_bounds__(kNarrowThreads)
 }
 
 // The multi-column route: kMatmatRows rows per block, RW columns from
-// blockIdx.y * RW.
+// blockIdx.y * RW; v is the (n1, r) float64 panel.
 template <class S, class A, int RW>
-__global__ void __launch_bounds__(kMatmatThreads)
+__global__ void __launch_bounds__(kMatmatThreads<RW>, kMatmatMinBlocks<RW>)
     gram_matmat_kernel(const __grid_constant__ SpecValues s, const typename A::Real* __restrict__ x0t,
-                       const typename A::Real* __restrict__ x1t, const typename A::Real* __restrict__ v,
-                       const typename A::Real* __restrict__ v_lo, typename A::Real* __restrict__ out,
-                       typename A::Real* __restrict__ out_lo, int n0, int n1, int r) {
-  matmat_rows<S, A, RW>(s, x0t, x1t, v, v_lo, out, out_lo, n0, n1, r, 0, n1);
-}
-
-// The same, held to two blocks per SM (gram_eval.cuh::kMatmatTwoBlocks).
-template <class S, class A, int RW>
-__global__ void __launch_bounds__(kMatmatThreads, 2)
-    gram_matmat_kernel_2(const __grid_constant__ SpecValues s, const typename A::Real* __restrict__ x0t,
-                         const typename A::Real* __restrict__ x1t, const typename A::Real* __restrict__ v,
-                         const typename A::Real* __restrict__ v_lo, typename A::Real* __restrict__ out,
-                         typename A::Real* __restrict__ out_lo, int n0, int n1, int r) {
-  matmat_rows<S, A, RW>(s, x0t, x1t, v, v_lo, out, out_lo, n0, n1, r, 0, n1);
+                       const typename A::Real* __restrict__ x1t, const double* __restrict__ v,
+                       typename A::Real* __restrict__ out, typename A::Real* __restrict__ out_lo, int n0, int n1,
+                       int r) {
+  matmat_rows<S, A, RW>(s, x0t, x1t, v, out, out_lo, n0, n1, r, 0, n1);
 }
 
 // -- launch ------------------------------------------------------------------------
@@ -128,39 +119,34 @@ cudaError_t launch_gram_matvec_rc(const SpecValues& s, const void* x0t, const vo
 }
 
 template <class S, class A, int RW>
-cudaError_t launch_gram_matmat_rw(const SpecValues& s, const void* x0t, const void* x1t, const void* v,
-                                  const void* v_lo, void* out, void* out_lo, int n0, int n1, int r,
-                                  cudaStream_t stream) {
+cudaError_t launch_gram_matmat_rw(const SpecValues& s, const void* x0t, const void* x1t, const void* v, void* out,
+                                  void* out_lo, int n0, int n1, int r, cudaStream_t stream) {
   using T = typename A::Real;
-  const auto kernel = [] {  // only the launched copy is instantiated
-    if constexpr (kMatmatTwoBlocks<A, RW>) {
-      return gram_matmat_kernel_2<S, A, RW>;
-    } else {
-      return gram_matmat_kernel<S, A, RW>;
-    }
-  }();
-  const size_t smem = matmat_smem_bytes<A, S::nd, RW>();
+  const auto kernel = gram_matmat_kernel<S, A, RW>;
+  const size_t smem = matmat_smem_bytes<RW>();
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((n0 + kMatmatRows - 1) / kMatmatRows, (r + RW - 1) / RW);
-  kernel<<<grid, kMatmatThreads, smem, stream>>>(s, static_cast<const T*>(x0t), static_cast<const T*>(x1t),
-                                                 static_cast<const T*>(v), static_cast<const T*>(v_lo),
-                                                 static_cast<T*>(out), static_cast<T*>(out_lo), n0, n1, r);
+  kernel<<<grid, kMatmatThreads<RW>, smem, stream>>>(s, static_cast<const T*>(x0t), static_cast<const T*>(x1t),
+                                                     static_cast<const double*>(v), static_cast<T*>(out),
+                                                     static_cast<T*>(out_lo), n0, n1, r);
   return cudaGetLastError();
 }
 
 // wide = 0: the narrow route, RC the narrowest of 1, 2, 4 that holds r (r > 4
 // in ceil(r / 4) column groups); wide = 1: the multi-column route, RW the
-// narrowest of 64, 128, 256 that holds r (256 above it).  The caller
+// narrowest of 64, 128, 256 that holds r (256 above it), v the (n1, r)
+// float64 panel (ops/_cuda.py::wide_panel) and v_lo null.  The caller
 // (ops/_cuda.py) picks the route and the column split, and counts the launch.
 template <class S, class A>
 cudaError_t launch_gram_matvec(const SpecValues& s, const void* x0t, const void* x1t, const void* v, const void* v_lo,
                                void* out, void* out_lo, int n0, int n1, int r, int wide, int splits, int chunk,
                                void* scratch, void* scratch_lo, cudaStream_t stream) {
-  if (wide) {
-    if (r <= 64) return launch_gram_matmat_rw<S, A, 64>(s, x0t, x1t, v, v_lo, out, out_lo, n0, n1, r, stream);
-    if (r <= 128) return launch_gram_matmat_rw<S, A, 128>(s, x0t, x1t, v, v_lo, out, out_lo, n0, n1, r, stream);
-    return launch_gram_matmat_rw<S, A, 256>(s, x0t, x1t, v, v_lo, out, out_lo, n0, n1, r, stream);
+  if (wide) {  // v: the float64 panel, no lo plane
+    if (v_lo != nullptr) return cudaErrorInvalidValue;
+    if (r <= 64) return launch_gram_matmat_rw<S, A, 64>(s, x0t, x1t, v, out, out_lo, n0, n1, r, stream);
+    if (r <= 128) return launch_gram_matmat_rw<S, A, 128>(s, x0t, x1t, v, out, out_lo, n0, n1, r, stream);
+    return launch_gram_matmat_rw<S, A, 256>(s, x0t, x1t, v, out, out_lo, n0, n1, r, stream);
   }
   if (r == 1) {
     return launch_gram_matvec_rc<S, A, 1>(s, x0t, x1t, v, v_lo, out, out_lo, n0, n1, r, splits, chunk, scratch,

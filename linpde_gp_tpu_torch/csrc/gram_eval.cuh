@@ -79,30 +79,20 @@ __device__ __forceinline__ double fma_of(double a, double b, double c) { return 
 
 // -- arithmetic policies -------------------------------------------------------------
 
-// Unroll of the narrow route's loop over staged columns (matvec_rows), each
-// iteration A::kRows pairs: the policy's kUnroll, or LGT_PAIR_UNROLL for
-// every policy where the build defines it (k2_probe.py times 1, 2 and 4).
-#ifdef LGT_PAIR_UNROLL
-#define LGT_UNROLL_OR(u) (LGT_PAIR_UNROLL)
-#else
-#define LGT_UNROLL_OR(u) (u)
-#endif
-
 // The plain body in T (float: "plain" mode, double: "f64" mode).  Horner
 // steps and the matvec's accumulation are explicit FMAs.
 template <typename T>
 struct PlainArith {
   using Real = T;
   using Val = T;
-  using Acc = T;   // a matvec row sum
-  using Prod = T;  // the multi-column route's product type
+  using Acc = T;  // a matvec row sum
   //: Rows per thread of the narrow route: independent pair chains per
   //: staged column (FP32 latency is short, FP64's long and its registers 2x).
   static constexpr int kRows = sizeof(T) == 4 ? 4 : 2;
   //: Staged columns per pair-loop iteration: unrolled 4x, the loop's index,
   //: address and branch work drops from 5.25 to 1.5 instructions a pair
   //: (plain; f64 29 to 13.4), 13 % (plain) and 11 % (f64) off K2 on the H100.
-  static constexpr int kUnroll = LGT_UNROLL_OR(4);
+  static constexpr int kUnroll = 4;
 
   static __device__ __forceinline__ T scale(const SpecValues& s, int f) {
     if constexpr (sizeof(T) == 4) {
@@ -146,9 +136,12 @@ struct PlainArith {
   static __device__ __forceinline__ Acc load(const T* p, const T* /*p_lo*/, size_t at) { return p[at]; }
   static __device__ __forceinline__ void store(T* out, T* /*out_lo*/, size_t at, Acc a) { out[at] = a; }
 
-  static __device__ __forceinline__ Prod prod_of(Val g) { return g; }
-  static __device__ __forceinline__ Prod prod_rhs(T v, T /*v_lo*/) { return v; }
-  static __device__ __forceinline__ void store_prod(T* out, T* /*out_lo*/, size_t at, Prod p) { out[at] = p; }
+  // The multi-column route's product is float64 in every mode (matmat_rows);
+  // plain rounds the f64 sum to f32 once, at the end.
+  static __device__ __forceinline__ double prod_of(Val g) { return static_cast<double>(g); }
+  static __device__ __forceinline__ void store_prod(T* out, T* /*out_lo*/, size_t at, double p) {
+    out[at] = static_cast<T>(p);
+  }
 };
 
 // The float-float body ("ff" mode, the JAX package's compensated=True).
@@ -156,11 +149,10 @@ struct FFArith {
   using Real = float;
   using Val = ff32;
   using Acc = ff32;
-  using Prod = double;
   static constexpr int kRows = 2;
   //: Not unrolled: 386 instructions a pair leave no loop work to save, and
   //: unrolled 4x the ff kernel ran 18 % slower on the H100 (2x: the same).
-  static constexpr int kUnroll = LGT_UNROLL_OR(1);
+  static constexpr int kUnroll = 1;
 
   static __device__ __forceinline__ Val diff(float a, float b) { return two_diff(a, b); }
   static __device__ __forceinline__ Val scaled(Val d, const SpecValues& s, int f) {
@@ -207,11 +199,10 @@ struct FFArith {
   }
 
   // The multi-column route forms the product and the sum in float64 from
-  // hi + lo and v + v_lo (exact to ~eps64): 2 FP64 flops a pair and column
-  // against ~20 FP32 flops in ff; the result leaves as its f32 split.
-  static __device__ __forceinline__ Prod prod_of(Val g) { return static_cast<double>(g.hi) + g.lo; }
-  static __device__ __forceinline__ Prod prod_rhs(float v, float v_lo) { return static_cast<double>(v) + v_lo; }
-  static __device__ __forceinline__ void store_prod(float* out, float* out_lo, size_t at, Prod p) {
+  // hi + lo and the f64 panel v + v_lo (exact to ~eps64); the result leaves
+  // as its f32 split.
+  static __device__ __forceinline__ double prod_of(Val g) { return static_cast<double>(g.hi) + g.lo; }
+  static __device__ __forceinline__ void store_prod(float* out, float* out_lo, size_t at, double p) {
     const float hi = static_cast<float>(p);
     out[at] = hi;
     out_lo[at] = static_cast<float>(p - static_cast<double>(hi));
@@ -456,36 +447,84 @@ __global__ void matvec_reduce_kernel(const typename A::Real* __restrict__ part,
 
 // -- one block of rows, many columns: the multi-column route ------------------------
 
-// matvec_rows evaluates every pair once per RC <= 4 right-hand-side columns,
-// so at r = 256 it would evaluate each pair 64 times.  The TPU bodies
-// (pallas_gram.py:348-389, :626-660) evaluate each Gram tile once and
-// multiply it by the whole (tile, r) panel; matmat_rows does the same per
-// block of RW in {64, 128, 256} columns, so a pair is evaluated ceil(r / RW)
-// times, once for r <= 256.
+// Replaces, for r > 4 right-hand-side columns, the TPU bodies of K2
+// (_matvec_body, linpde_gp_tpu/ops/pallas_gram.py:348) and of the banded
+// multi-RHS matvec (_banded_matvec_body, :626): each evaluates a Gram tile
+// once and multiplies it by the whole (tile, r) panel of V.  matmat_rows does
+// the same per block of kMatmatRows rows and RW in {64, 128, 256} columns, so
+// a pair is evaluated ceil(r / RW) times, once for r <= 256, where the narrow
+// route (matvec_rows) would evaluate it once per 4 columns.
 //
-// What bounds it on the H100: at RW = 256 the product is 512 flops a pair
-// (in FP64 for modes f64 and ff, FP32 for plain) against ~35 (f64) to ~370
-// (ff, FP32) for the evaluation, so FP64 FMA throughput, not the evaluation.
-constexpr int kMatmatThreads = 256;  // 8 warps
-// The FP64-product instantiations at RW = 256 (modes f64 and ff) launch a
-// copy of their kernel held to two blocks per SM, at most 128 registers a
-// thread: unbounded, the ff one takes 125-144 and runs one block per SM (on
-// the H100: banded ff at r = 256 86 -> 52 ms, K2 ff 1443 -> 790 ms at
-// 1e5 x 1e5).  The others keep __launch_bounds__(kMatmatThreads) alone (40-80
-// registers).  A second argument of 1 is not the same: it tells ptxas one
-// block per SM is enough, and it spends registers up to its limit (K2 ff
-// RW = 64 58 -> 155, f64 RW = 128 74 -> 114), which cost K2 at r = 64 1.2-1.4x
-// and plain at r = 256 1.2x on the H100.  So one kernel with a templated
-// minimum does not do, and the bounded copy is a kernel of its own.
-template <class A, int RW>
-constexpr bool kMatmatTwoBlocks = RW == 256 && sizeof(typename A::Prod) == 8;
-constexpr int kMatmatRows = 32;      // output rows per block
-constexpr int kMatmatDepth = 32;     // Gram columns (V rows) per tile
+// What bounds it on the H100: per pair, the evaluation (ops/_cuda.py::
+// pair_ops: ~23 FP32 instructions in plain, ~33 FP64 in f64, ~363 FP32 in
+// ff) and RW multiply-adds of the product, which runs in float64 in every
+// mode on the FP64 tensor cores (67 TFLOP/s, NVIDIA's H100 SXM data sheet).
+// At 1e5 x 1e5 and r = 256 the product bounds plain and f64 (76 ms) and FP32
+// issue of the evaluation bounds ff (104 ms); at r = 64 the evaluation
+// bounds f64 (19 ms, FP64 pipe) and ff.  What the design does:
+// - The product is mma.sync m16n8k4 f64 (DMMA; wgmma has no f64 type), not
+//   a DFMA loop on the FP64 pipe at half that rate whose broadcast shared
+//   loads took as many issue slots as its FMAs.  The accumulators stay f64 in
+//   registers.  Ragged rows, columns and depth are zero-filled in shared
+//   memory; the MMA is never predicated.  (m16n8k8 and k16, timed in an
+//   earlier 8-warp layout, ran no faster and spilled.)
+// - A block holds 64 rows x RW columns, twice the former 32-row tile, so it
+//   streams V's panel for twice the rows: at r = 256 the launch reads
+//   1e5 / 64 x 205 MB, mostly from L2.  At RW = 64 it has 8 warps (2 x 4, a
+//   warp 32 x 16) and two blocks an SM; from RW = 128 up 16 warps (2 x 8, a
+//   warp 32 x RW/8, 32 accumulators a thread at RW = 256) and one block.
+//   16 warps took K2 at r = 256 from 236 to 182 ms (f64) on the H100 while
+//   X1 was read per pair; with X1 staged, 8 warps match 16 there in plain
+//   and f64 and are 9 % slower in ff (k2_probe.py --wide, PERF.md).
+// - Each pair is evaluated once per block into shared memory as f64 (G =
+//   hi + lo in ff), so the column warps share one evaluation.
+// - G and V are double-buffered over depth tiles of 32: one __syncthreads
+//   per tile, and each thread evaluates its pairs of tile t + 1 one at a
+//   time, each beside a share of the MMA k-steps of tile t, so the FP32 /
+//   FP64 pipe and the tensor pipe run together instead of in turns.  At 16
+//   warps that loop stays rolled: one evaluation live at a time, no spills.
+// - V's tiles arrive by cp.async (16 bytes a thread where r is even, 8
+//   otherwise; one source base and stride a thread) into the free buffer
+//   while the block works on the other.  V is a float64 panel in every
+//   mode: the wrapper (ops/_cuda.py::wide_panel) forms v + v_lo (ff, exact
+//   for an ff split) or widens v (plain) once per call, so staging converts
+//   nothing.  The X1 coordinates of each tile arrive the same way, two
+//   tiles ahead: read per pair from global memory they missed L1 (which
+//   shared memory leaves at ~60 KB) and stalled the evaluation; staged,
+//   K2 at r = 256 fell from 141 / 164 / 239 to 116 / 151 / 219 ms (plain
+//   / f64 / ff) on the H100.
+// - What holds it now (k2_probe.py --wide with its skip variants): at
+//   r = 256 V's stream into shared memory alone takes ~55 ms, the product
+//   and the stream ~108 ms (DMMA at ~70 % of its peak), the evaluation and
+//   the stream 58 / 59 / 152 ms (plain / f64 / ff).  Sharing V's tiles
+//   between the two blocks of a cluster (multicast bulk copies) and deeper
+//   V rings (3-4 stages) were timed and ran no faster.
+// - Both shared arrays are padded by 4 doubles a row, so each half-warp's
+//   fragment loads (lane 4 g + t reads (k = t, m = g) of G, (k = t, n = g) of
+//   V) fall on 16 distinct 8-byte banks.
+// - The launch bounds (kMatmatThreads, kMatmatMinBlocks) cap registers at
+//   128 a thread; the former copies held to two blocks an SM are gone.
+// Deterministic: no atomics, each output's sum runs over the depth tiles in
+// order and, inside a tile, in the MMA's fixed order.
+constexpr int kMatmatRows = 64;   // output rows per block
+constexpr int kMatmatDepth = 32;  // Gram columns (V rows) per depth tile
+constexpr int kMatmatPad = 4;     // doubles of padding per shared row
 
-template <class A, int ND, int RW>
+// Threads per block at RW columns, warps in a 2 x (warps / 2) grid: 16
+// warps from RW = 128 up (32 f64 accumulators a thread at RW = 256, 128
+// registers a thread), else 8.
+template <int RW>
+constexpr int kMatmatThreads = RW >= 128 ? 512 : 256;
+// Blocks per SM that the kernels' __launch_bounds__ hold registers to.
+template <int RW>
+constexpr int kMatmatMinBlocks = kMatmatThreads<RW> == 256 && RW == 64 ? 2 : 1;
+
+// Two buffers each of V's (depth x RW) tile and G's (depth x rows) tile,
+// three of the X1 coordinates of a tile (up to kMaxDims doubles a column).
+template <int RW>
 constexpr size_t matmat_smem_bytes() {
-  return sizeof(typename A::Prod) * static_cast<size_t>(kMatmatDepth) * (RW + kMatmatRows) +
-         sizeof(typename A::Real) * static_cast<size_t>(kMatmatDepth) * ND;
+  return sizeof(double) * static_cast<size_t>(kMatmatDepth) *
+         (2 * (RW + kMatmatRows + 2 * kMatmatPad) + 3 * kMaxDims);
 }
 
 // Dynamic shared memory above 48 KB must be allowed per kernel.
@@ -495,108 +534,219 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
 }
 
+// d += a b for a 16 x 4 tile a and a 4 x 8 tile b: mma.sync m16n8k4 f64
+// (sm_90).  Lane 4 g + t holds a0 = a[g][t], a1 = a[g + 8][t], b0 = b[t][g]
+// and d[i] = d[g + 8 (i / 2)][2 t + i % 2] (CUTLASS's
+// SM90_16x8x4_F64F64F64F64_TN: SM80_16x4_Row, SM80_8x4_Row, SM80_16x8_Row).
+__device__ __forceinline__ void dmma_16x8x4(double (&d)[4], double a0, double a1, double b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a0), "d"(a1), "d"(b0));
+}
+
+// Asynchronous copy of BYTES (4, 8 or 16) from global to shared memory; of
+// the source only src_bytes are read, the rest is zero-filled.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(src_bytes));
+  } else if constexpr (BYTES == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src), "r"(src_bytes));
+  } else {
+    static_assert(BYTES == 4, "cp.async copies 4, 8 or 16 bytes");
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(src_bytes));
+  }
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// Wait until at most N of this thread's newest copy groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Start copying V's rows [j0, j0 + jn), columns [c0, c0 + RW) into sv
+// ([kMatmatDepth][RW + kMatmatPad]), zeros for rows >= jn and columns >= r,
+// in copies of E doubles (E = 2 where r is even and v 16-byte aligned, else
+// 1).  A thread copies one column slot c in rows k0, k0 + step, ...: one
+// source base and one stride, the same in every tile.
+template <int RW, int E>
+__device__ __forceinline__ void stage_v_rows(double* sv, const double* __restrict__ v, int r, int j0, int jn,
+                                             int c0) {
+  constexpr int THREADS = kMatmatThreads<RW>, PER_ROW = RW / E, STEP = THREADS / PER_ROW;
+  constexpr int N = kMatmatDepth / STEP, LDV = RW + kMatmatPad;
+  static_assert(THREADS % PER_ROW == 0 && kMatmatDepth % STEP == 0, "whole rows per pass");
+  const int k0 = threadIdx.x / PER_ROW, c = E * (threadIdx.x % PER_ROW);
+  const bool col_ok = c0 + c < r;
+  const double* src = v + (static_cast<size_t>(j0) + k0) * r + c0 + c;
+  double* dst = sv + k0 * LDV + c;
+#pragma unroll
+  for (int q = 0; q < N; ++q) {
+    const bool ok = col_ok && k0 + q * STEP < jn;
+    cp_async<8 * E>(dst + q * STEP * LDV, ok ? src + static_cast<size_t>(q) * STEP * r : v, ok ? 8 * E : 0);
+  }
+  cp_async_commit();  // with the X1 coordinates started before it
+}
+
+template <int RW>
+__device__ __forceinline__ void stage_v(double* sv, const double* __restrict__ v, int r, int j0, int jn, int c0,
+                                        bool pairs) {
+  if (pairs) {
+    stage_v_rows<RW, 2>(sv, v, r, j0, jn, c0);
+  } else {
+    stage_v_rows<RW, 1>(sv, v, r, j0, jn, c0);
+  }
+}
+
+// Start copying the X1 coordinates of columns [j0, j0 + jn) into sx
+// ([nd][kMatmatDepth]), zeros past jn; the caller commits the group.
+template <class S, class A>
+__device__ __forceinline__ void stage_x(typename A::Real* sx, const typename A::Real* __restrict__ x1t, int n1,
+                                        int j0, int jn) {
+  using T = typename A::Real;
+  const int k = threadIdx.x % kMatmatDepth, dd = threadIdx.x / kMatmatDepth;
+  if (dd < S::nd) {
+    const bool ok = k < jn;
+    cp_async<sizeof(T)>(sx + dd * kMatmatDepth + k, ok ? x1t + static_cast<size_t>(dd) * n1 + j0 + k : x1t,
+                        ok ? static_cast<int>(sizeof(T)) : 0);
+  }
+}
+
+// G of this thread's row (coordinates a) and column k of a tile whose X1
+// coordinates sx holds, as the f64 product operand.
+template <class S, class A>
+__device__ __forceinline__ double matmat_pair(const SpecValues& s, const typename A::Real* a,
+                                              const typename A::Real* sx, int k) {
+  typename A::Real b[S::nd];
+#pragma unroll
+  for (int dd = 0; dd < S::nd; ++dd) b[dd] = sx[dd * kMatmatDepth + k];
+  return A::prod_of(eval_pair<S, A>(s, a, b));
+}
+
 // out[i, c0:c0+RW] = sum_{j in [j_begin, j_end)} k(x0_i, x1_j) v[j, c0:c0+RW]
 // for the kMatmatRows rows from blockIdx.x * kMatmatRows, c0 = blockIdx.y * RW,
-// launched with kMatmatThreads threads.  Per tile of kMatmatDepth columns the
-// block stages the tile's X1 coordinates and V's (depth x RW) panel (as
-// A::Prod, the lo plane of an ff right-hand side folded in), evaluates the
-// tile's (rows x depth) pairs once each through eval_pair into shared memory
-// (as A::Prod: hi + lo in float64 for ff), and each thread accumulates an
-// 8 x RW/64 register micro-tile of the output from the two with explicit
-// FMAs.  Warp w owns rows (w % 4) * 8 + [0, 8) and columns (w / 4) * RW/2 +
-// lane + 32 j: Gram reads are warp broadcasts; V reads and output stores are
-// 32 consecutive elements.  No atomics; ragged edges are masked.  Every thread
-// of the block must call this with the same column range.
+// launched with kMatmatThreads<RW> threads and matmat_smem_bytes<RW>() of
+// dynamic shared memory; v is the (n1, r) float64 panel.  Every thread of
+// the block must call this with the same column range.
 template <class S, class A, int RW>
 __device__ __forceinline__ void matmat_rows(const SpecValues& s, const typename A::Real* __restrict__ x0t,
-                                            const typename A::Real* __restrict__ x1t,
-                                            const typename A::Real* __restrict__ v,
-                                            const typename A::Real* __restrict__ v_lo,
+                                            const typename A::Real* __restrict__ x1t, const double* __restrict__ v,
                                             typename A::Real* __restrict__ out, typename A::Real* __restrict__ out_lo,
                                             int n0, int n1, int r, int j_begin, int j_end) {
   using T = typename A::Real;
-  using P = typename A::Prod;
-  constexpr int ND = S::nd;
-  constexpr int T0 = kMatmatRows, T1 = kMatmatDepth, TN = RW / 64;
-  static_assert(RW % 64 == 0 && T0 == 32 && kMatmatThreads == 256, "warp layout assumes these sizes");
+  constexpr int ND = S::nd, BM = kMatmatRows, BK = kMatmatDepth, KSTEPS = BK / 4;  // m16n8k4 k-steps a tile
+  constexpr int THREADS = kMatmatThreads<RW>;
+  constexpr int KQ = THREADS / BM;      // threads per row in the evaluation
+  constexpr int PAIRS = BK / KQ;        // pairs a thread evaluates per depth tile
+  constexpr int KPP = KSTEPS / PAIRS;   // MMA k-steps issued beside each pair
+  // The pair loop: unrolled at 8 warps (at RW = 64, 5-10 % faster on the
+  // H100), rolled at 16, where unrolled it spilled.
+  constexpr int UNROLL = THREADS == 256 ? PAIRS : 1;
+  constexpr int WN = THREADS / 64;      // warps along the columns
+  constexpr int NT = RW / (8 * WN);     // 8-column MMA tiles of a warp
+  constexpr int LDV = RW + kMatmatPad, LDG = BM + kMatmatPad;
+  static_assert(BM == 64 && THREADS % BM == 0 && BK % KQ == 0 && BK % 4 == 0 && KSTEPS % PAIRS == 0 && NT >= 1 &&
+                    NT * 8 * WN == RW,
+                "the warp layout assumes these sizes");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  P* sV = reinterpret_cast<P*>(smem_raw);      // [T1][RW]
-  P* sG = sV + T1 * RW;                        // [T1][T0]: rows fastest
-  T* sx = reinterpret_cast<T*>(sG + T1 * T0);  // [ND][T1]
+  double* sV = reinterpret_cast<double*>(smem_raw);  // [2][BK][LDV]
+  double* sG = sV + 2 * BK * LDV;                     // [2][BK][LDG]: rows fastest
+  T* sX = reinterpret_cast<T*>(sG + 2 * BK * LDG);     // [3][ND][BK]: X1 coordinates, two tiles ahead of V
+  static_assert(ND <= kMaxDims && ND * BK <= THREADS, "one coordinate a thread");
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int row0 = blockIdx.x * T0;
-  const int c0 = blockIdx.y * RW;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = blockIdx.x * BM, c0 = blockIdx.y * RW;
+  const bool pairs = r % 2 == 0 && (reinterpret_cast<size_t>(v) & 15) == 0;
 
-  // Evaluation: this thread's row is row0 + lane, its columns warp + 8 q.
+  // Evaluation: row erow of the block, columns kq + KQ q of each depth tile
+  // (q < PAIRS, evaluated beside the MMA k-steps [q KPP, (q + 1) KPP)); kq
+  // is uniform in a warp.
+  const int erow = tid % BM, kq = tid / BM;
   T a[ND];
-  const int er = row0 + lane;
 #pragma unroll
-  for (int k = 0; k < ND; ++k) a[k] = er < n0 ? x0t[static_cast<size_t>(k) * n0 + er] : T(0);
+  for (int k = 0; k < ND; ++k) a[k] = row0 + erow < n0 ? x0t[static_cast<size_t>(k) * n0 + row0 + erow] : T(0);
 
-  // Product: rows pr + [0, 8), columns pc + 32 j.
-  const int pr = (warp & 3) * 8;
-  const int pc = (warp >> 2) * (RW / 2) + lane;
-  P acc[8][TN];
+  // Product: the warp's rows wm + [0, 32) as two 16-row MMA tiles, columns
+  // wn + [0, RW / WN) as NT 8-column tiles.
+  const int wm = (warp & 1) * 32, wn = (warp >> 1) * (RW / WN);
+  double acc[2][NT][4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = P(0);
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.0;
+    }
   }
 
-  for (int j0 = j_begin; j0 < j_end; j0 += T1) {
-    const int jn = min(T1, j_end - j0);
-    __syncthreads();  // the previous tile is consumed
-    if (tid < jn) {
-#pragma unroll
-      for (int dd = 0; dd < ND; ++dd) sx[dd * T1 + tid] = x1t[static_cast<size_t>(dd) * n1 + j0 + tid];
-    }
-    for (int e = tid; e < T1 * RW; e += kMatmatThreads) {
-      const int k = e / RW, c = e % RW;
-      P val = P(0);
-      if (k < jn && c0 + c < r) {
-        const size_t at = static_cast<size_t>(j0 + k) * r + c0 + c;
-        val = A::prod_rhs(v[at], v_lo != nullptr ? v_lo[at] : T(0));
-      }
-      sV[e] = val;
-    }
+  const int ntiles = j_end > j_begin ? (j_end - j_begin + BK - 1) / BK : 0;
+  if (ntiles > 0) {  // tile 0: V's copy in flight; X1 of tiles 0 and 1 in, then G of tile 0
+    const int jn = min(BK, j_end - j_begin);
+    stage_x<S, A>(sX, x1t, n1, j_begin, jn);
+    if (ntiles > 1) stage_x<S, A>(sX + ND * BK, x1t, n1, j_begin + BK, min(BK, j_end - j_begin - BK));
+    cp_async_commit();
+    stage_v<RW>(sV, v, r, j_begin, jn, c0, pairs);
+    cp_async_wait<1>();
     __syncthreads();
 #pragma unroll 1
-    for (int q = 0; q < T1 / 8; ++q) {
-      const int k = warp + 8 * q;
-      P g = P(0);
-      if (k < jn) {
-        T b[ND];
-#pragma unroll
-        for (int dd = 0; dd < ND; ++dd) b[dd] = sx[dd * T1 + k];
-        g = A::prod_of(eval_pair<S, A>(s, a, b));
-      }
-      sG[k * T0 + lane] = g;
+    for (int q = 0; q < PAIRS; ++q) {
+      const int k = kq + KQ * q;
+      sG[k * LDG + erow] = k < jn ? matmat_pair<S, A>(s, a, sX, k) : 0.0;
     }
-    __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < T1; ++k) {
-      P g[8], w[TN];
+  }
+  for (int it = 0; it < ntiles; ++it) {
+    const int cur = it & 1, nxt = cur ^ 1;
+    const int j1 = j_begin + (it + 1) * BK;
+    const bool more = it + 1 < ntiles;
+    const int jn1 = more ? min(BK, j_end - j1) : 0;
+    cp_async_wait<0>();
+    __syncthreads();  // tile it's V and G, and X1 of tile it + 1, are in place; tile it - 1's buffers are free
+    if (it + 2 < ntiles) {
+      const int j2 = j1 + BK;
+      stage_x<S, A>(sX + ((it + 2) % 3) * ND * BK, x1t, n1, j2, min(BK, j_end - j2));
+    }
+    if (more) stage_v<RW>(sV + nxt * BK * LDV, v, r, j1, jn1, c0, pairs);
+    const T* sx1 = sX + ((it + 1) % 3) * ND * BK;
+    const double* gc = sG + cur * BK * LDG;
+    const double* vc = sV + cur * BK * LDV;
+    double* gn = sG + nxt * BK * LDG;
+#pragma unroll(UNROLL)
+    for (int q = 0; q < PAIRS; ++q) {
+      // This thread's pair q of tile it + 1, issued beside KPP MMA k-steps of tile it.
+      const int k1 = kq + KQ * q;
+      const double gv = k1 < jn1 ? matmat_pair<S, A>(s, a, sx1, k1) : 0.0;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) g[i] = sG[k * T0 + pr + i];
+      for (int kk = 0; kk < KPP; ++kk) {
+        const int kr = 4 * (q * KPP + kk) + t;  // this lane's depth row of the k-step
+        double af[2][2];
 #pragma unroll
-      for (int j = 0; j < TN; ++j) w[j] = sV[k * RW + pc + 32 * j];
+        for (int mt = 0; mt < 2; ++mt) {
+          af[mt][0] = gc[kr * LDG + wm + 16 * mt + g];
+          af[mt][1] = gc[kr * LDG + wm + 16 * mt + g + 8];
+        }
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
+        for (int nt = 0; nt < NT; ++nt) {
+          const double b0 = vc[kr * LDV + wn + 8 * nt + g];
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fma_of(g[i], w[j], acc[i][j]);
+          for (int mt = 0; mt < 2; ++mt) dmma_16x8x4(acc[mt][nt], af[mt][0], af[mt][1], b0);
+        }
       }
+      if (more) gn[k1 * LDG + erow] = gv;
     }
   }
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = row0 + pr + i;
-    if (row >= n0) continue;
+  for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int col = c0 + pc + 32 * j;
-      if (col < r) A::store_prod(out, out_lo, static_cast<size_t>(row) * r + col, acc[i][j]);
+    for (int i = 0; i < 4; ++i) {
+      const int row = row0 + wm + 16 * mt + g + 8 * (i >> 1);
+      if (row >= n0) continue;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int col = c0 + wn + 8 * nt + 2 * t + (i & 1);
+        if (col < r) A::store_prod(out, out_lo, static_cast<size_t>(row) * r + col, acc[mt][nt][i]);
+      }
     }
   }
 }

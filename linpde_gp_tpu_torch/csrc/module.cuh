@@ -64,9 +64,10 @@ int lgt_gram(const lgt::SpecValues* spec, int mode, const void* x0t, const void*
 
 // v (n1, r); v_lo: lo plane of an ff right-hand side (mode kFF only; may be
 // null); out (n0, r) and, in mode kFF, out_lo its lo plane (required).
-// wide != 0 takes the multi-column route; the narrow route splits the
-// columns into `splits` chunks of `chunk` (scratch, scratch_lo: (splits, n0,
-// r), read only if splits > 1).
+// wide != 0 takes the multi-column route: there v is the (n1, r) float64
+// panel in every mode (v + v_lo in kFF) and v_lo null.  The narrow route
+// splits the columns into `splits` chunks of `chunk` (scratch, scratch_lo:
+// (splits, n0, r), read only if splits > 1).
 int lgt_gram_matvec(const lgt::SpecValues* spec, int mode, const void* x0t, const void* x1t, const void* v,
                     const void* v_lo, void* out, void* out_lo, int n0, int n1, int r, int wide, int splits, int chunk,
                     void* scratch, void* scratch_lo, void* stream) {
@@ -80,8 +81,9 @@ int lgt_gram_matvec(const lgt::SpecValues* spec, int mode, const void* x0t, cons
 
 // Points sorted by dimension 0 and transposed, (ndims, n); v (n1, r) in the
 // sorted column order; win (ceil(n0 / tile), 2) int32 column windows; v_lo,
-// out_lo as for lgt_gram_matvec.  wide != 0 takes the multi-column route and
-// needs tile % kMatmatRows == 0; the narrow walk needs tile % (32 kRows) == 0.
+// out_lo as for lgt_gram_matvec.  wide != 0 takes the multi-column route (v
+// the float64 panel, as for lgt_gram_matvec) and needs tile % kMatmatRows
+// == 0; the narrow walk needs tile % (32 kRows) == 0.
 int lgt_banded_matvec(const lgt::SpecValues* spec, int mode, const void* x0t, const void* x1t, const void* v,
                       const void* v_lo, void* out, void* out_lo, const int* win, int n0, int n1, int r, int tile,
                       int wide, void* stream) {
@@ -94,6 +96,9 @@ int lgt_banded_matvec(const lgt::SpecValues* spec, int mode, const void* x0t, co
 
 // Rows per block of the narrow route in a mode (the column split's unit).
 int lgt_narrow_rows(int mode) { return lgt::dispatch_mode<lgt::NarrowRows>(mode); }
+
+// Rows per block of the multi-column route (ops/_cuda.py::MATMAT_ROWS).
+int lgt_matmat_rows() { return lgt::kMatmatRows; }
 
 int lgt_structure_dims() { return lgt::Structure::nd; }
 

@@ -231,3 +231,28 @@ def test_spec_table_holds_the_wendland_specs():
     assert not packed[106:].any()
     with pytest.raises(ValueError, match="coefficients"):
         _cuda.structure_of(_collapse_terms(heat_spec(3)[1]))
+
+
+@pytest.mark.parametrize("tile,r", [(96, 5), (32, 256), (160, 64)])
+def test_multi_column_tile_is_checked_before_any_launch(tile, r, monkeypatch):
+    """The multi-column route's 64-row blocks must tile the banded row
+    blocks: a tile that is no multiple of them raises in Python, before a
+    module is built or a kernel launched, and the narrow route (r <= 4)
+    takes such a tile."""
+    from linpde_gp_tpu_torch.ops.gram import _collapse_terms
+
+    assert tile % _cuda.MATMAT_ROWS != 0 and tile % 32 == 0
+    groups = _collapse_terms(tuple(CASES["1d"]()[0][1]))
+    X = torch.zeros((tile, 1), dtype=torch.float64)
+    windows = torch.zeros((1, 2), dtype=torch.int32)
+    before = dict(_cuda.launches)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("built a module for a refused tile")
+
+    monkeypatch.setattr(_cuda, "module", refuse)
+    with pytest.raises(ValueError, match="multiple of its 64-row blocks"):
+        _cuda.banded_matvec(groups, X, X, torch.zeros((tile, r), dtype=torch.float64), windows, tile, "f64")
+    with pytest.raises(AssertionError, match="built a module"):  # r <= 4 passes the check
+        _cuda.banded_matvec(groups, X, X, torch.zeros((tile, 4), dtype=torch.float64), windows, tile, "f64")
+    assert _cuda.launches == before

@@ -89,7 +89,7 @@ def test_gram_matches_pallas(mode):
 _MATVEC_TOL = {"plain": 3e-6, "ff": 3e-6, "f64": 1e-13}
 
 
-@pytest.mark.parametrize("r", [1, 3])
+@pytest.mark.parametrize("r", [1, 3, 64, 256])
 @pytest.mark.parametrize("mode", ["plain", "ff", "f64"])
 def test_gram_matvec_matches_pallas(mode, r):
     scale, terms = OBS
@@ -279,7 +279,9 @@ def test_heat_obs_and_cross_share_a_structure():
 @pytest.mark.parametrize("wide", [False, True])
 def test_pair_ops_are_positive(mode, wide):
     """The per-pair operation counts the bounds rest on: positive on the
-    mode's pipe, none on the other precision's, growing with r."""
+    mode's pipe, none on the other precision's, growing with r.  On the
+    multi-column route the product is r float64 FMAs on the FP64 tensor
+    cores in every mode, and the evaluation stays on the mode's pipe."""
     st = _cuda.structure_of(_collapse_terms(OBS[1]))
     r = 256 if wide else 1
     ops = _cuda.pair_ops(st, mode, r, wide)
@@ -287,8 +289,14 @@ def test_pair_ops_are_positive(mode, wide):
     assert ops[main] > 0 and all(v >= 0 for v in ops.values())
     assert (ops["mufu"] > 0) == (mode == "plain")
     if not wide:
-        assert ops["fp32" if mode == "f64" else "fp64"] == 0
+        assert ops["fp32" if mode == "f64" else "fp64"] == 0 and ops["fp64_tc"] == 0
         assert sum(_cuda.pair_ops(st, mode, 4).values()) > sum(ops.values())
+    else:
+        # The evaluation once (a narrow count at r = 0), the product on the tensor cores.
+        evaluation = _cuda.pair_ops(st, mode, 0)
+        assert ops == {**evaluation, "fp64_tc": r}
+        if mode == "ff":
+            assert ops["fp64"] == 0
 
 
 @pytest.mark.parametrize("row_blocks,n1", [(1, 100_000), (16, 100_000), (391, 100_000), (782, 100_000),
@@ -331,3 +339,21 @@ def test_ff_matvec_plain_returns_a_pair(r):
     got = hi.double().numpy() + lo.double().numpy()
     assert np.max(np.abs(got - want)) <= 1e-12 * np.max(np.abs(want))
     np.testing.assert_array_equal(hi.numpy(), got.astype(np.float32))
+
+
+@pytest.mark.parametrize("shape", [(1000, 256), (777, 100), (5, 48), (1, 5)])
+def test_wide_panel_is_the_exact_sum_of_an_ff_pair(shape):
+    """The multi-column route's float64 panel of an ff right-hand side
+    (hi, lo) = ff_split(x) is the pair's exact sum, element by element, and
+    a plain or f64 right-hand side is only widened."""
+    from linpde_gp_tpu_torch.ops.ff import ff_split
+
+    rng = np.random.default_rng(50)
+    x = torch.from_numpy(rng.standard_normal(shape) * np.exp(rng.uniform(-20.0, 20.0, shape)))
+    hi, lo = ff_split(x)
+    panel = _cuda.wide_panel(hi, lo)
+    assert panel.dtype == torch.float64 and panel.shape == shape and panel.is_contiguous()
+    assert torch.equal(panel - hi.double(), lo.double())
+    assert torch.equal(panel, x.float().double() + lo.double())
+    assert torch.equal(_cuda.wide_panel(hi), hi.double())
+    assert _cuda.wide_panel(x).data_ptr() == x.data_ptr()  # a contiguous f64 panel is taken as it is
