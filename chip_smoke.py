@@ -77,13 +77,45 @@ Phases, each printed as it finishes:
               relres and the true relres recomputed by the float64 plain
               version, and the mean at 64 queries against the float64 plain
               version.
+6. dense    - the dense conditioning engine (``GaussianProcess.
+              condition_on_observations``, float64), the launch counts set
+              to 0 just before the engine's work of each run and read just
+              after (K1 and K2 must launch); references run outside that
+              window:
+              - dense ibvp: the heat prior and operator, the IBVP's 96 IC
+                anchors, then each of its two 48-point BC sets (noise 1e-5),
+                then H u = 0 at N = 32,768 collocation points (noise 1e-3
+                k(0)): one f64 factor grown by chol_extend three times.
+                Then the mean and std at 8,192 queries, var and cov.matrix
+                at 256.  Logged: seconds of the K1 Gram blocks, the
+                Cholesky factorizations, chol_extend and the weights
+                (:class:`Spans`), of the mean, std (and per 256 queries) and
+                cov.matrix; the route of each mean block (K2 or evaluate @
+                w) and the mean's own launches; the peak device memory.
+                Checked: every mean block launched K2 once and no K1; the
+                engine launched K1 and K2 at r = 1 and nothing else; the
+                largest K1 block (launched again on its operands, timed with
+                CUDA events) within 1e-12 of k(0) of the plain version, each
+                mean K2 call within 1e-12 of sum_j |k_ij v_j| of its plain
+                version; RMSE against u* <= 4e-4; diag(cov.matrix) against
+                var within DIAG_BOUND of the prior variance; finite values;
+                peak memory < 40 GB; no plain version called on a CUDA
+                tensor; then the mean within 1e-6 of max |mean| and var
+                within 1e-3 of var per query of the port's
+                IterativeGPRegressor on the same data (f64, CG tol 1e-10).
+              - dense oracle: the oracle's heat problem at N = 4,096 with 24
+                anchors against the hand-built f64 Cholesky posterior, mean,
+                var and cov.matrix to 1e-9; again with
+                config.solve_refinement (a float32 factor refined in f64),
+                the mean and cov.matrix to 1e-6.
 
 The line before the last is a JSON object with one entry per kernel: its
 ff time at the main path's shape beside its plain version's, its bound
 (``bound_ms``: the larger of the operations the work needs, from the
 generator's per-pair counts, over the H100 SXM's peak rate of their
 pipe, and its bytes over the memory rate; :data:`PEAK`) and its launches
-in the main phase.  The last line is ``{"ok": true, "device": {...}}``,
+in the main and dense phases (``launches_by_path``: the main phase's runs
+and the dense engine's own work, apart).  The last line is ``{"ok": true, "device": {...}}``,
 printed only if every phase passed.  The script never imports JAX.
 """
 
@@ -99,7 +131,7 @@ import traceback
 
 import numpy as np
 
-PHASES = ("device", "build", "kernels", "timing", "main")
+PHASES = ("device", "build", "kernels", "timing", "main", "dense")
 # name -> (TPU kernel(s) it replaces, label, source)
 KERNELS = {
     "gram": ("linpde_gp_tpu/ops/pallas_gram.py:277", "K1", "linpde_gp_tpu_torch/csrc/gram.cuh"),
@@ -162,6 +194,13 @@ ORACLE_VAR_BOUND = {"plain": 1e-3, "ff": 1e-5, "f64": 1e-7}
 #: The ff variance at this CG tol must agree with the f64 reference
 #: (REF_TOLS[1]) within REF_AGREE of var per query, the bound f64 meets.
 FF_VAR_TOL = 1e-9
+#: The dense engine's PDE points: the largest dense size of the JAX
+#: package's scaling sweep (experiments/scaling_tpu.py:19).
+DENSE_N = 32768
+#: diag(cov.matrix) against var, relative to the prior variance: the GEMM's
+#: diagonal and var's column sum round the same ~3e4 products, which sum to
+#: about the prior variance, in different orders.
+DIAG_BOUND = 1e-13
 
 failures: list[str] = []
 card = "unknown"
@@ -1150,6 +1189,48 @@ def run_ibvp_path(mode, n, nq, rank, *, device="cuda", n_ic=96, n_bc=48, tol=1e-
     return out
 
 
+def oracle_posterior(X, Y, Xq, noise, dev, anchors=None, cov_q=0):
+    """The mean and variance at ``Xq`` of the float64 dense Cholesky posterior
+    of the heat problem with ``H u = Y + eps`` at ``X`` (noise ``noise``) and,
+    with ``anchors = (Xa, Ya, anchor_noise)``, ``u = Ya + eps`` at ``Xa``,
+    built by hand from the plain versions on ``dev``, on the points as given
+    (float32 arrays are read exactly in float64); with ``cov_q``, also the
+    covariance matrix at the first ``cov_q`` queries (else ``None``)."""
+    import torch
+
+    from linpde_gp_tpu_torch.ops.gram import gram_plain, kernel_term_specs
+    from linpde_gp_tpu_torch.ops.transforms import apply_operator_to_kernel
+
+    prior, H = heat_problem()
+    specs = heat_specs()
+    n = X.shape[0]
+    X64, Xq64 = (torch.from_numpy(a.astype(np.float64)).to(dev) for a in (X, Xq))
+    k_spec = kernel_term_specs(prior.cov)
+
+    def dense(spec, x0, x1):
+        return spec[0] * gram_plain(spec[1], x0, x1, "f64")
+
+    G = dense(specs["obs"], X64, X64) + noise * torch.eye(n, dtype=torch.float64, device=dev)
+    Kq = dense(specs["cross"], Xq64, X64)
+    y = torch.from_numpy(Y.astype(np.float64)).to(dev)
+    if anchors is not None:
+        Xa, Ya, anchor_noise = anchors
+        Xa64 = torch.from_numpy(Xa.astype(np.float64)).to(dev)
+        WL = dense(kernel_term_specs(apply_operator_to_kernel(H, prior.cov, argnum=0)), X64, Xa64)
+        A11 = dense(k_spec, Xa64, Xa64) + anchor_noise * torch.eye(Xa.shape[0], dtype=torch.float64, device=dev)
+        G = torch.cat([torch.cat([A11, WL.T], 1), torch.cat([WL, G], 1)], 0)
+        Kq = torch.cat([dense(k_spec, Xq64, Xa64), Kq], 1)
+        y = torch.cat([torch.from_numpy(Ya.astype(np.float64)).to(dev), y])
+    C = torch.linalg.cholesky(G)
+    m_ref = Kq @ torch.cholesky_solve(y[:, None], C)[:, 0]
+    v_ref = prior.cov(Xq64) - torch.sum(Kq * torch.cholesky_solve(Kq.T, C).T, 1)
+    C_ref = None
+    if cov_q:
+        Kc = Kq[:cov_q]
+        C_ref = dense(k_spec, Xq64[:cov_q], Xq64[:cov_q]) - Kc @ torch.cholesky_solve(Kc.T, C)
+    return m_ref, v_ref, C_ref
+
+
 def run_oracle_path(mode, *, n=4096, nq=128, n_anchor=24, device="cuda", rank=512, noise_rel=1e-3,
                     anchor_noise=1e-5, maxiter=1024):
     """The heat problem at a size where the dense posterior fits: ``var``
@@ -1159,24 +1240,14 @@ def run_oracle_path(mode, *, n=4096, nq=128, n_anchor=24, device="cuda", rank=51
     import torch
 
     from linpde_gp_tpu_torch.models.iterative import IterativeGPRegressor
-    from linpde_gp_tpu_torch.ops.gram import gram_plain, kernel_term_specs
-    from linpde_gp_tpu_torch.ops.transforms import apply_operator_to_kernel
     from linpde_gp_tpu_torch.specs import spec_diagonal
 
     prior, H = heat_problem()
-    specs = heat_specs()
     X, Y, Xq = bench_data(n, nq)
     Xa, Ya = ibvp_anchors(n_anchor, 0)
-    noise = noise_rel * spec_diagonal(specs["obs"])
+    noise = noise_rel * spec_diagonal(heat_specs()["obs"])
     tol = ORACLE_TOL[mode]
     dev = torch.device(device)
-    X64, Xq64, Xa64 = (torch.from_numpy(a.astype(np.float64)).to(dev) for a in (X, Xq, Xa))
-
-    def dense(spec, x0, x1):
-        return spec[0] * gram_plain(spec[1], x0, x1, "f64")
-
-    k_spec = kernel_term_specs(prior.cov)
-    kL_spec = kernel_term_specs(apply_operator_to_kernel(H, prior.cov, argnum=0))
     out = {}
     for anchored in (False, True):
         tag = f"oracle[{mode}{' anchored' if anchored else ''}]"
@@ -1188,18 +1259,7 @@ def run_oracle_path(mode, *, n=4096, nq=128, n_anchor=24, device="cuda", rank=51
         var = reg.var(torch.from_numpy(Xq), block_size=nq).double()
         sync()
         secs = time.perf_counter() - t0
-        G = dense(specs["obs"], X64, X64) + noise * torch.eye(n, dtype=torch.float64, device=dev)
-        Kq = dense(specs["cross"], Xq64, X64)
-        y = torch.from_numpy(Y.astype(np.float64)).to(dev)
-        if anchored:
-            WL = dense(kL_spec, X64, Xa64)
-            A11 = dense(k_spec, Xa64, Xa64) + anchor_noise * torch.eye(n_anchor, dtype=torch.float64, device=dev)
-            G = torch.cat([torch.cat([A11, WL.T], 1), torch.cat([WL, G], 1)], 0)
-            Kq = torch.cat([dense(k_spec, Xq64, Xa64), Kq], 1)
-            y = torch.cat([torch.from_numpy(Ya.astype(np.float64)).to(dev), y])
-        C = torch.linalg.cholesky(G)
-        m_ref = Kq @ torch.cholesky_solve(y[:, None], C)[:, 0]
-        v_ref = prior.cov(Xq64) - torch.sum(Kq * torch.cholesky_solve(Kq.T, C).T, 1)
+        m_ref, v_ref, _ = oracle_posterior(X, Y, Xq, noise, dev, (Xa, Ya, anchor_noise) if anchored else None)
         e_var = ((var - v_ref).abs().max() / v_ref.max()).item()
         e_mean = ((mu - m_ref).abs().max() / m_ref.abs().max()).item()
         sync()
@@ -1283,6 +1343,364 @@ def phase_main(specs, k0, n, nq, rank) -> dict:
     return total
 
 
+class Spans:
+    """Host seconds (synchronized around each call) and calls of library
+    functions, wrapped by name for the length of a ``with`` block; also the
+    calls of the kernels' plain versions on CUDA tensors (``plain_on_cuda``),
+    which the engine must never make.  ``keep[name](args, out)``, where
+    given, picks what to keep of each call of ``name`` in ``kept[name]``."""
+
+    def __init__(self, targets: dict, keep: dict | None = None):
+        from linpde_gp_tpu_torch.ops import gram as gram_module
+
+        self.targets = dict(targets)
+        self.keep = dict(keep or {})
+        self.kept = {name: [] for name in self.keep}
+        self.plain = [(gram_module, "gram_plain"), (gram_module, "gram_matvec_plain")]
+        self.seconds = {name: 0.0 for name in self.targets}
+        self.longest = {name: 0.0 for name in self.targets}
+        self.calls = {name: 0 for name in self.targets}
+        self.plain_on_cuda = 0
+        self._saved = []
+
+    def _timed(self, name, fn):
+        def wrapper(*args, **kwargs):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            sync()
+            secs = time.perf_counter() - t0
+            self.seconds[name] += secs
+            self.longest[name] = max(self.longest[name], secs)
+            self.calls[name] += 1
+            if name in self.keep:
+                self.kept[name].append(self.keep[name](args, out))
+            return out
+
+        return wrapper
+
+    def _counted(self, fn):
+        def wrapper(*args, **kwargs):
+            import torch
+
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                self.plain_on_cuda += 1
+            return fn(*args, **kwargs)
+
+        return wrapper
+
+    def __enter__(self):
+        for name, (module, attr) in self.targets.items():
+            self._saved.append((module, attr, getattr(module, attr)))
+            setattr(module, attr, self._timed(name, getattr(module, attr)))
+        for module, attr in self.plain:
+            self._saved.append((module, attr, getattr(module, attr)))
+            setattr(module, attr, self._counted(getattr(module, attr)))
+        return self
+
+    def __exit__(self, *exc):
+        for module, attr, fn in reversed(self._saved):
+            setattr(module, attr, fn)
+        self._saved.clear()
+
+
+def _k1_sample(args, out):
+    """A K1 call's operands and a strided sample of its output (the whole
+    output may be the 8.6 GB PDE block)."""
+    return args, tuple(out.shape), out[::509, ::503].clone()
+
+
+def dense_spans() -> "Spans":
+    """The dense engine's stages: every K1 Gram block (``ops/gram.gram``,
+    each kept as :func:`_k1_sample`), the Cholesky factorizations
+    (``chol._factor``, the Schur complements of ``chol_extend`` included),
+    ``chol_extend`` whole, the weights' ``cho_solve``, and every K2 call
+    (``ops/gram.gram_matvec``, kept whole: the mean's blocks)."""
+    from linpde_gp_tpu_torch.models import gp as gp_module
+    from linpde_gp_tpu_torch.ops import gram as gram_module
+    from linpde_gp_tpu_torch.ops.linalg import chol as chol_module
+
+    return Spans({"k1_gram_blocks": (gram_module, "gram"), "cholesky": (chol_module, "_factor"),
+                  "chol_extend": (gp_module, "chol_extend"), "weights": (gp_module, "cho_solve"),
+                  "k2_calls": (gram_module, "gram_matvec")},
+                 keep={"k1_gram_blocks": _k1_sample, "k2_calls": lambda args, out: (args, out)})
+
+
+def dense_heat_prior(device):
+    from linpde_gp_tpu_torch import GaussianProcess
+
+    prior, H = heat_problem()
+    return GaussianProcess(prior.mean, prior.cov, device=device), H
+
+
+def _check_dense_kernels(spans, tag, on_card) -> dict:
+    """The dense engine's kernels against their plain versions on the same
+    operands: the largest K1 block (launched again and timed with CUDA
+    events beside the plain version; the relaunch must give the engine's
+    output exactly on a strided sample) within 1e-12 of its largest entry,
+    k(0) of its kernel; every K2 call of the mean within 1e-12 of its row's
+    sum_j |k_ij v_j|."""
+    import torch
+
+    from linpde_gp_tpu_torch.ops.gram import gram, gram_matvec_plain, gram_plain
+
+    args, shape, sample = max(spans.kept["k1_gram_blocks"], key=lambda k: k[1][0] * k[1][1])
+    terms, X0, X1, mode = args
+    if on_card:
+        k1_ms, K = timed(lambda: gram(terms, X0, X1, mode), reps=3)
+        plain_ms, P = timed(lambda: gram_plain(terms, X0, X1, mode))
+    else:
+        k1_ms = plain_ms = None
+        K, P = gram(terms, X0, X1, mode), gram_plain(terms, X0, X1, mode)
+    same = torch.equal(K[::509, ::503], sample)
+    kd = P.abs().max().item()
+    err = (K - P).abs().max().item()
+    del K, P
+    nd = X0.shape[1]
+    b = kernel_bound((1.0, terms), mode, shape[0] * shape[1], 8 * (shape[0] * shape[1] + nd * (shape[0] + shape[1])))
+    out = {"k1": dict(shape=list(shape), ms=k1_ms, plain_ms=plain_ms, max_abs_err=err, rel_err=err / kd, **b)}
+    check(same, f"{tag}: K1 launched again on the {shape[0]}x{shape[1]} block's operands gives the engine's block")
+    check(err <= 1e-12 * kd, f"{tag}: K1 f64 {shape[0]}x{shape[1]} block vs plain f64: {err / kd:.3e} k(0) <= 1e-12")
+    if on_card:
+        log(f"  {tag}: K1 f64 {shape[0]}x{shape[1]} {k1_ms:.3f} ms (CUDA events, mean of 3), plain {plain_ms:.1f} ms, "
+            f"bound {b['bound_ms']:.3f} ms ({b['bound_by']}, {b['pipe']})")
+    k2 = []
+    for (spec, x, pts, v, mode), res in spans.kept["k2_calls"]:
+        scale, terms = spec
+        ref = gram_matvec_plain(spec, x, pts, v, mode)
+        row_absum = abs(scale) * (gram_plain(terms, x, pts, mode).abs() @ v.abs())
+        e_row = ((res - ref).abs() / row_absum).max().item()
+        k2.append(dict(n0=x.shape[0], n1=pts.shape[0], r=1 if v.ndim == 1 else v.shape[1], row_rel_err=e_row,
+                       max_abs_err=(res - ref).abs().max().item()))
+        check(e_row <= 1e-12, f"{tag}: K2 f64 {x.shape[0]}x{pts.shape[0]} mean block vs plain f64: {e_row:.3e} of "
+              "sum_j |k_ij v_j| <= 1e-12")
+    out["k2"] = k2
+    return out
+
+
+def run_dense_path(n, nq, *, device="cuda", n_ic=96, n_bc=48, noise_rel=1e-3, anchor_noise=1e-5, var_q=256,
+                   cov_q=256, rank=IBVP_RANK, it_tol=1e-10, maxiter=2000):
+    """The dense conditioning engine on the anchored heat IBVP
+    (``GaussianProcess.condition_on_observations``, float64): the 96 IC
+    anchors, then each 48-point BC set (``chol_extend`` twice), then ``H u =
+    0 + eps`` at ``n`` collocation points (``chol_extend`` once more); then
+    ``mean`` and ``std`` at ``nq`` queries, ``var`` and ``cov.matrix`` at the
+    first ``cov_q``.  The launch counts are set to 0 just before the engine's
+    work and read just after it (``launches``), the mean's apart
+    (``mean_launches``: K2 once per block, no K1, no multi-column route).
+    Checks the engine's K1 and K2 calls against their plain versions
+    (:func:`_check_dense_kernels`), the RMSE against u*, diag(cov.matrix)
+    against var, finite values, peak device memory, no plain version on a
+    CUDA tensor, and then, outside the counted window, the agreement with the
+    port's ``IterativeGPRegressor`` on the same data (f64, CG tol ``it_tol``:
+    mean at ``nq`` queries, var at ``var_q``).  Returns the measurements."""
+    import torch
+
+    import linpde_gp_tpu_torch as lgt
+    from linpde_gp_tpu_torch.models.iterative import IterativeGPRegressor
+    from linpde_gp_tpu_torch.ops import _cuda
+    from linpde_gp_tpu_torch.specs import spec_diagonal
+
+    tag = "dense ibvp"
+    prior, H = dense_heat_prior(device)
+    X, Xq = ibvp_data(n, nq)
+    Xa, Ya = ibvp_anchors(n_ic, n_bc)
+    noise = noise_rel * spec_diagonal(heat_specs()["obs"])
+    cuts = (0, n_ic, n_ic + n_bc, n_ic + 2 * n_bc)
+    on_card = torch.device(device).type == "cuda"
+    # Warm-up at a small size (library handles, allocator), not timed.
+    warm = prior.condition_on_observations(Ya[:8], X=Xa[:8], b=lgt.Normal(np.zeros(8), anchor_noise * np.ones(8)))
+    warm = warm.condition_on_observations(np.zeros(256), X=X[:256], L=H,
+                                          b=lgt.Normal(np.zeros(256), noise * np.ones(256)))
+    warm.std(Xq[:256]), warm.mean(Xq[:256]), warm.cov.matrix(Xq[:16])
+    del warm
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    spans = dense_spans()
+    out = dict(n=n, nq=nq, n_anchor=int(Xa.shape[0]), noise=noise, anchor_noise=anchor_noise)
+    _cuda.reset_launches()
+    with spans:
+        t0 = time.perf_counter()
+        post = prior
+        for a, b in zip(cuts[:-1], cuts[1:]):
+            m = b - a
+            post = post.condition_on_observations(Ya[a:b], X=Xa[a:b],
+                                                  b=lgt.Normal(np.zeros(m), anchor_noise * np.ones(m)))
+        post = post.condition_on_observations(np.zeros(n), X=X, L=H, b=lgt.Normal(np.zeros(n), noise * np.ones(n)))
+        sync()
+        out["condition_s"] = time.perf_counter() - t0
+        out["stages_s"] = {k: v for k, v in spans.seconds.items() if k != "k2_calls"}
+        out["stage_calls"] = {k: v for k, v in spans.calls.items() if k != "k2_calls"}
+        out["stage_longest_s"] = {k: v for k, v in spans.longest.items() if k != "k2_calls"}
+        before = dict(_cuda.launches)
+        spans.kept["k2_calls"].clear()
+        t0 = time.perf_counter()
+        mu = post.mean(Xq)
+        sync()
+        out["mean_s"] = time.perf_counter() - t0
+        out["mean_launches"] = {k: _cuda.launches[k] - before[k] for k in before}
+        k2_mean = list(spans.kept["k2_calls"])
+        t0 = time.perf_counter()
+        sd = post.std(Xq)
+        sync()
+        out["std_s"] = time.perf_counter() - t0
+        out["std_s_per_256"] = out["std_s"] * 256 / nq
+        var = post.var(Xq[:cov_q])
+        t0 = time.perf_counter()
+        C = post.cov.matrix(Xq[:cov_q])
+        sync()
+        out["cov_matrix_s"] = time.perf_counter() - t0
+    out["launches"] = dict(_cuda.launches)
+    spans.kept["k2_calls"] = k2_mean
+    out["plain_calls_on_cuda"] = spans.plain_on_cuda
+    routes = [blk.matvec_route for blk in post.kLas]
+    out["mean_routes"] = routes
+    out["factor"] = list(post.gram_cholesky.shape)
+    if on_card:
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  {tag}: engine launches {out['launches']}; the mean's {out['mean_launches']}; "
+        f"routes by block (IC, BC x=-1, BC x=1, PDE): {routes}")
+    check(post.gram_cholesky.shape == (n + Xa.shape[0],) * 2 and post.gram_cholesky.dtype == torch.float64,
+          f"{tag}: one f64 factor of {n + Xa.shape[0]}^2, grown by chol_extend {spans.calls['chol_extend']} times")
+    check(spans.calls["chol_extend"] == 3, f"{tag}: chol_extend ran 3 times")
+    check(spans.plain_on_cuda == 0 or not on_card,
+          f"{tag}: no plain version on a CUDA tensor ({spans.plain_on_cuda} calls)")
+    check(all(r == "K2" for r in routes) and len(k2_mean) == len(routes),
+          f"{tag}: every mean block routed to K2 ({len(k2_mean)} K2 calls for {len(routes)} blocks)")
+    if on_card:
+        ml, el = out["mean_launches"], out["launches"]
+        check(ml["gram_matvec"] == len(routes) and ml["gram"] == 0 and ml["gram_matvec_wide"] == 0,
+              f"{tag}: the mean launched K2 at r = 1 once per block and no K1 or multi-column route: {ml}")
+        check(el["gram"] > 0 and el["gram_matvec"] > 0 and el["gram_matvec_wide"] == 0
+              and el["banded_matvec"] == 0 and el["banded_matvec_wide"] == 0,
+              f"{tag}: the engine launched K1 and K2 at r = 1, nothing else: {el}")
+    finite = all(bool(torch.isfinite(t).all()) for t in (mu, sd, var, C))
+    check(finite and mu.shape == (nq,) and sd.shape == (nq,) and C.shape == (cov_q, cov_q),
+          f"{tag}: mean, std at {nq} queries, var and cov.matrix at {cov_q} finite, of their shapes")
+    err = mu.double().cpu().numpy() - u_star(Xq)
+    rmse = float(np.sqrt(np.mean(err**2)))
+    out.update(rmse=rmse, max_err=float(np.max(np.abs(err))))
+    check(rmse <= 4e-4, f"{tag}: RMSE vs u* at {nq} queries {rmse:.3e} <= 4e-4")
+    # cov.matrix's diagonal is a GEMM's (K - q0^T q0, as in the JAX package),
+    # var a column sum of q0^2: each rounds ~1e4 products summing to ~k(0).
+    k_prior = prior.cov(Xq[:cov_q]).abs().max().item()
+    diag_err = (torch.diagonal(C) - var).abs().max().item() / k_prior
+    out.update(diag_vs_var=diag_err, diag_vs_var_of_max_var=diag_err * k_prior / var.max().item())
+    check(diag_err <= DIAG_BOUND, f"{tag}: diag(cov.matrix) vs var at {cov_q} queries {diag_err:.3e} of the prior "
+          f"variance <= {DIAG_BOUND:g} ({out['diag_vs_var_of_max_var']:.3e} of max var)")
+    if on_card:
+        check(out["peak_gb"] < 40, f"{tag}: peak device memory {out['peak_gb']:.2f} GB < 40")
+    mu_d, var_d = mu.double().cpu(), var.double().cpu()
+    out["var_range"] = [var_d.min().item(), var_d.max().item()]
+    del post, mu, sd, var, C
+    if on_card:
+        torch.cuda.empty_cache()
+    out.update(_check_dense_kernels(spans, tag, on_card))
+    del spans
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # The gram-free regressor on the same data and anchors, f64, tight tol.
+    t0 = time.perf_counter()
+    reg = IterativeGPRegressor(prior, X, np.zeros(n), L=H, noise_variance=noise, tol=it_tol, maxiter=maxiter,
+                               precond_rank=rank, mode="f64", device=device, anchor_X=Xa, anchor_Y=Ya,
+                               anchor_noise=anchor_noise)
+    mu_it = reg.mean(torch.from_numpy(Xq)).double().cpu()
+    var_it = reg.var(torch.from_numpy(Xq[:var_q]), block_size=var_q, tol=it_tol).double().cpu()
+    sync()
+    out["iterative"] = dict(seconds=time.perf_counter() - t0, solve=reg.solve_info, var_blocks=reg.var_info)
+    e_mean = ((mu_d - mu_it).abs().max() / mu_it.abs().max()).item()
+    e_var = ((var_d[:var_q] - var_it).abs() / var_it).max().item()
+    out.update(mean_vs_iterative=e_mean, var_vs_iterative=e_var)
+    check(e_mean <= 1e-6, f"{tag}: mean vs IterativeGPRegressor (f64, tol {it_tol:g}) {e_mean:.3e} of max |mean| "
+          "<= 1e-6")
+    check(e_var <= 1e-3, f"{tag}: var vs IterativeGPRegressor at {var_q} queries {e_var:.3e} of var, per query "
+          "<= 1e-3")
+    log(f"dense[{tag}] " + json.dumps(out))
+    return out
+
+
+def run_dense_oracle(*, refine=False, n=4096, nq=128, n_anchor=24, device="cuda", noise_rel=1e-3,
+                     anchor_noise=1e-5):
+    """The dense engine at ``run_oracle_path``'s size (24 IC anchors, then
+    N = 4,096 PDE points) against the hand-built f64 Cholesky posterior
+    (:func:`oracle_posterior`): mean, var and ``cov.matrix`` (all its
+    entries) at ``nq`` queries within 1e-9 of max |mean| and max var; with
+    ``refine`` (``config.solve_refinement``, a float32 factor refined in
+    f64) the mean and ``cov.matrix`` within 1e-6.  The launch counts are
+    set to 0 just before the engine's work and read just after
+    (``launches``)."""
+    import torch
+
+    import linpde_gp_tpu_torch as lgt
+    from linpde_gp_tpu_torch.config import config
+    from linpde_gp_tpu_torch.ops import _cuda
+    from linpde_gp_tpu_torch.specs import spec_diagonal
+
+    tag = f"dense oracle{' refined' if refine else ''}"
+    prior, H = dense_heat_prior(device)
+    X, Y, Xq = bench_data(n, nq)
+    Xa, Ya = ibvp_anchors(n_anchor, 0)
+    noise = noise_rel * spec_diagonal(heat_specs()["obs"])
+    config.set(solve_refinement=refine)
+    _cuda.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        post = prior.condition_on_observations(Ya, X=Xa, b=lgt.Normal(np.zeros(n_anchor),
+                                                                      anchor_noise * np.ones(n_anchor)))
+        post = post.condition_on_observations(Y, X=X, L=H, b=lgt.Normal(np.zeros(n), noise * np.ones(n)))
+        mu, var, C = post.mean(Xq), post.var(Xq), post.cov.matrix(Xq)
+        sync()
+        secs = time.perf_counter() - t0
+        factor = str(post.gram_cholesky.dtype)
+    finally:
+        config.set(solve_refinement=False)
+    launches = dict(_cuda.launches)
+    m_ref, v_ref, C_ref = oracle_posterior(X, Y, Xq, noise, torch.device(device), (Xa, Ya, anchor_noise), cov_q=nq)
+    e_mean = ((mu - m_ref).abs().max() / m_ref.abs().max()).item()
+    e_var = ((var - v_ref).abs().max() / v_ref.max()).item()
+    e_cov = ((C - C_ref).abs().max() / v_ref.max()).item()
+    sync()
+    out = dict(n=n, nq=nq, n_anchor=n_anchor, factor=factor, seconds=secs, mean_rel_err=e_mean, var_rel_err=e_var,
+               cov_rel_err=e_cov, launches=launches)
+    finite = all(bool(torch.isfinite(t).all()) for t in (mu, var, C))
+    if refine:
+        check(finite and factor == "torch.float32" and e_mean <= 1e-6 and e_cov <= 1e-6,
+              f"{tag}: float32 factor; mean {e_mean:.3e} of max |mean| and cov.matrix {e_cov:.3e} of max var vs the "
+              f"f64 dense posterior <= 1e-6 (var: {e_var:.3e} of max var)")
+    else:
+        check(finite and e_mean <= 1e-9 and e_var <= 1e-9 and e_cov <= 1e-9,
+              f"{tag}: mean {e_mean:.3e} of max |mean|, var {e_var:.3e} and cov.matrix {e_cov:.3e} of max var vs "
+              "the f64 dense posterior <= 1e-9")
+    log(f"dense[{tag}] " + json.dumps(out))
+    return out
+
+
+def phase_dense(n, nq) -> dict:
+    """The dense engine's runs: the dense IBVP at ``n`` PDE points, then the
+    oracle plain and refined.  Each run sets the launch counts to 0 just
+    before the engine's work and reads them just after (K1 and K2 must
+    launch); its references run outside that window.  Returns the engine's
+    launches summed over the runs."""
+    total = {name: 0 for name in KERNELS}
+    for name, run in (("ibvp", lambda: run_dense_path(n, nq)), ("oracle", lambda: run_dense_oracle()),
+                      ("oracle refined", lambda: run_dense_oracle(refine=True))):
+        per = None
+        try:
+            per = run()["launches"]
+        except Exception as exc:  # noqa: BLE001 - report, go on with the next run, fail at the end
+            traceback.print_exc()
+            failures.append(f"dense[{name}]: {type(exc).__name__}: {exc}")
+        if per is None:
+            continue
+        for key in total:
+            total[key] += per[key]
+        log(f"dense[{name}] engine launches {per}")
+        check(per["gram"] > 0 and per["gram_matvec"] > 0, f"dense[{name}] launched K1 and K2: {per}")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -1308,7 +1726,7 @@ def main(argv=None) -> int:
         f"float32_matmul_precision={torch.get_float32_matmul_precision()}")
 
     timing, banded_timing = {}, {}
-    launches = {}
+    launches = {"main": {}, "dense": {}}
     for phase in PHASES:
         if phase not in phases and phase not in ("device", "build"):
             continue
@@ -1326,8 +1744,10 @@ def main(argv=None) -> int:
             elif phase == "timing":
                 timing = phase_timing(derived, n, nq, rank)
                 banded_timing = phase_banded_timing(n)
+            elif phase == "main":
+                launches["main"] = phase_main(specs, k0, n, nq, rank)
             else:
-                launches = phase_main(specs, k0, n, nq, rank)
+                launches["dense"] = phase_dense(DENSE_N, nq)
         except Exception as exc:  # noqa: BLE001 - every phase reports, then the script fails
             traceback.print_exc()
             failures.append(f"phase {phase}: {type(exc).__name__}: {exc}")
@@ -1361,7 +1781,9 @@ def main(argv=None) -> int:
             ff_row = (banded_timing.get("ff") or {}).get("r256") or {}
         entries.append({
             "name": name, "label": label, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches.get(name, 0), "max_abs_err": ff_row.get("max_abs_err"),
+            "launches": sum(launches[p].get(name, 0) for p in launches),
+            "launches_by_path": {p: launches[p].get(name, 0) for p in launches},
+            "max_abs_err": ff_row.get("max_abs_err"),
             "ms": ff_row.get("ms"), "plain_ms": ff_row.get("plain_ms"), "bound_ms": ff_row.get("bound_ms"),
             # No single PyTorch call computes a closed-form Gram or Gram matvec of these kernels.
             "bound_by": ff_row.get("bound_by"), "library_ms": None, "mode": "ff", "shape": shape, "card": card,

@@ -1,28 +1,67 @@
 """linpde_gp_tpu_torch: the PyTorch/CUDA port of linpde_gp_tpu.
 
 The JAX package ``linpde_gp_tpu`` stays the reference; this package
-mirrors its module paths and never imports JAX.  The slices ported so far
-are gram-free GP conditioning on operator observations
-(:class:`models.iterative.IterativeGPRegressor`, from a
-:class:`models.gp.GaussianProcess` prior and an operator of
-``ops.diffops``) through the symbolic layer that derives closed-form
-kernel specs (``ops/kernels``, ``ops/diffops``, ``ops/transforms``), with
-hand-written CUDA kernels for Gram assembly and the Gram matvec
-(``csrc/gram.cuh``) and the banded matvec of compactly supported kernels
-(``csrc/banded.cuh``), compiled per kernel-spec structure at first use
-(``ops/_cuda.py``).
+mirrors its module paths and names and never imports JAX.  Ported so far:
+
+- the dense conditioning engine (:class:`models.gp.GaussianProcess`,
+  ``condition_on_observations`` on point and operator observations,
+  :class:`models.gp.ConditionalGaussianProcess` with incremental Cholesky
+  extension), with random variables, functionals, cross-covariances and
+  structured linear algebra, in float64;
+- gram-free GP conditioning on operator observations
+  (:class:`models.iterative.IterativeGPRegressor`);
+- the symbolic layer that derives closed-form kernel specs
+  (``ops/kernels``, ``ops/diffops``, ``ops/transforms``).
+
+Both engines evaluate kernels through hand-written CUDA kernels for Gram
+assembly and the Gram matvec (``csrc/gram.cuh``) and the banded matvec of
+compactly supported kernels (``csrc/banded.cuh``), compiled per
+kernel-spec structure at first use (``ops/_cuda.py``).  Entry points run
+on the card when one is present (``config.device`` overrides).
 """
 
 import torch
 
 from .config import MODES, config
-from .models.gp import GaussianProcess
-from .models.iterative import IterativeGPRegressor
+from . import models, ops
+from .models import (
+    ConditionalGaussianProcess,
+    Constant,
+    DeterministicProcess,
+    GaussianProcess,
+    IterativeGPRegressor,
+    Normal,
+    asrandvar,
+    functions,
+    randvars,
+)
+from .ops import crosscov, diffops, functionals, kernels, linalg, transforms
 
-# Full float32 matmuls (the Nyström GEMMs and the Woodbury apply): TF32
-# keeps ~3 decimal digits and breaks CG the way bf16 did on the TPU.
-# Both are torch's defaults; they are stated here so nothing relies on it.
+# Full float32 matmuls (the Nyström GEMMs, the Woodbury apply, the refined
+# solve's float32 factor): TF32 keeps ~3 decimal digits and breaks CG the
+# way bf16 did on the TPU.  Both are torch's defaults; they are stated here
+# so nothing relies on it.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
-__all__ = ["GaussianProcess", "IterativeGPRegressor", "MODES", "config"]
+__all__ = [
+    "MODES",
+    "config",
+    "models",
+    "ops",
+    "functions",
+    "randvars",
+    "kernels",
+    "diffops",
+    "functionals",
+    "crosscov",
+    "linalg",
+    "transforms",
+    "GaussianProcess",
+    "ConditionalGaussianProcess",
+    "IterativeGPRegressor",
+    "DeterministicProcess",
+    "Normal",
+    "Constant",
+    "asrandvar",
+]

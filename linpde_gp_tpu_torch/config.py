@@ -1,7 +1,10 @@
 """Global configuration of the PyTorch/CUDA port.
 
 Counterpart of ``linpde_gp_tpu/config.py``, cut to what the gram-free
-conditioning path reads.  Three arithmetic modes evaluate the kernel:
+and dense conditioning paths read.  The dense engine (``models/gp.py``)
+runs in float64 and reads the Cholesky jitter and whether to refine;
+the gram-free path evaluates the kernel in one of three arithmetic
+modes:
 
 - ``"plain"``: float32, the plain kernel body;
 - ``"ff"``: float32 float-float pairs (``ops/ff.py``), the JAX package's
@@ -18,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 MODES = ("plain", "ff", "f64")
@@ -42,6 +46,21 @@ class _Config:
     #: multiple of 128 (the narrow walk's rows per block in every mode).
     matvec_tile: int = 128
 
+    #: Jitter added to a Gram's diagonal before its Cholesky factorization,
+    #: relative to the mean diagonal (JAX ``config.py:30``).
+    cholesky_jitter: float = 0.0
+
+    #: Mixed-precision dense conditioning: factor float64 Grams in float32
+    #: and recover float64 accuracy by preconditioned-CG refinement
+    #: (``ops/linalg/refine.py``).
+    solve_refinement: bool = False
+
+    def set(self, **kwargs):
+        for key, value in kwargs.items():
+            if not hasattr(self, key):
+                raise AttributeError(f"Unknown config key: {key}")
+            setattr(self, key, value)
+
 
 config = _Config()
 
@@ -64,3 +83,12 @@ def resolve_device(device=None) -> torch.device:
     if device is None:
         device = "cuda" if torch.cuda.is_available() else "cpu"
     return torch.device(device)
+
+
+def as_f64(x, device=None) -> torch.Tensor:
+    """``x`` (numpy, a tensor or a number) as a float64 tensor, the dense
+    engine's storage: on ``device`` if given, else a tensor on its own device
+    and anything else on :func:`resolve_device`'s."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=x.device if device is None else torch.device(device), dtype=torch.float64)
+    return torch.tensor(np.asarray(x, dtype=np.float64), device=resolve_device(device))

@@ -3,8 +3,7 @@
 Port of ``linpde_gp_tpu/models/functions/base.py`` (``Function`` ``:19``,
 ``Zero`` ``:132``), cut to what the conditioning path reads: the shapes,
 batched evaluation and the zero function.  Function arithmetic
-(sums, constants, lambdas) comes with the dense engine (ROADMAP Queue 1
-item 9).
+(sums, constants, lambdas) comes with ROADMAP Queue 1 item 9b.
 """
 
 from __future__ import annotations

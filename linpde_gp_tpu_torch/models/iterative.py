@@ -38,6 +38,7 @@ from ..ops.gram import gram, gram_matrix, gram_matvec, kernel_term_specs
 from ..ops.linalg.chol import cho_solve, cholesky
 from ..ops.linalg.pcg import landmark_indices, nystrom_preconditioner_device, pcg_block_ff, pcg_ff
 from ..ops.transforms.dispatch import apply_operator_to_kernel
+from ..utils.shapes import size
 from .functions.base import Zero
 from .gp import GaussianProcess
 
@@ -96,7 +97,7 @@ class IterativeGPRegressor:
         if prior.output_shape != ():
             raise ValueError("IterativeGPRegressor supports scalar outputs.")
         if not isinstance(prior.mean, Zero):
-            raise NotImplementedError("only a Zero prior mean is ported yet (functions: ROADMAP Queue 1 item 9)")
+            raise NotImplementedError("only a Zero prior mean is ported yet (ROADMAP Queue 1 item 9b)")
         k = prior.cov
         if L is not None:
             k_obs = apply_operator_to_kernel(L, apply_operator_to_kernel(L, k, argnum=1), argnum=0)
@@ -106,7 +107,7 @@ class IterativeGPRegressor:
         obs_spec, cross_spec = kernel_term_specs(k_obs), kernel_term_specs(k_cross)
         if obs_spec is None or cross_spec is None:
             raise NotImplementedError(
-                "the kernel has no sum-of-products spec; the dense engine is ROADMAP Queue 1 item 9"
+                "the kernel has no sum-of-products spec (other kernels: ROADMAP Queue 1 item 9d)"
             )
         X = torch.as_tensor(X).reshape((-1,) + tuple(prior.input_shape))
         self.prior = prior
@@ -348,32 +349,40 @@ class IterativeGPRegressor:
         self._weights_ff()
         return self._anchor_weights
 
+    def _batch_shape(self, x) -> tuple:
+        """The shape of the results at queries ``x`` (``iterative.py:534,553``
+        of the JAX package): ``x.shape`` without the prior's input shape, or
+        ``(nq,)`` for a regressor built from specs (queries ``(nq, d)``)."""
+        shape = tuple(torch.as_tensor(x).shape)
+        return shape[:1] if self.prior is None else shape[: len(shape) - len(self.prior.input_shape)]
+
     def _queries(self, x) -> torch.Tensor:
+        """The queries as ``(nq, d)`` on the regressor's device."""
         x = torch.as_tensor(x)
-        return x.reshape(x.shape[0], -1).to(device=self.device, dtype=self.X.dtype)
+        return x.reshape(size(self._batch_shape(x)), -1).to(device=self.device, dtype=self.X.dtype)
 
     def mean(self, x) -> torch.Tensor:
-        """Posterior mean at ``(nq,) + input_shape`` query points (or
-        ``(nq, d)`` for a regressor built from specs), on the regressor's
-        device, in the mode's dtype; with anchors ``+ k(xq, X1) @
-        anchor_weights`` (``iterative.py:547-551``), added in the anchor
+        """Posterior mean at ``batch + input_shape`` query points (or ``(nq,
+        d)`` for a regressor built from specs), of shape ``batch``, on the
+        regressor's device, in the mode's dtype; with anchors ``+ k(xq, X1)
+        @ anchor_weights`` (``iterative.py:547-551``), added in the anchor
         blocks' dtype."""
-        xq = self._queries(x)
+        xq, batch = self._queries(x), self._batch_shape(x)
         w = self._weights_ff()
         if self.mode == "ff":
             mu = gram_matvec(self._cross_spec, xq, self.X, w, self.mode)[0]
         else:
             mu = gram_matvec(self._cross_spec, xq, self.X, w[0], self.mode)
         a = self._anchors
-        if a is None:
-            return mu
-        dt = a["W"].dtype
-        k1 = gram_matrix(self.prior.cov, xq.to(dt), a["X1"], self._anchor_mode)
-        return (mu.to(dt) + k1 @ self._anchor_weights).to(mu.dtype)
+        if a is not None:
+            dt = a["W"].dtype
+            k1 = gram_matrix(self.prior.cov, xq.to(dt), a["X1"], self._anchor_mode)
+            mu = (mu.to(dt) + k1 @ self._anchor_weights).to(mu.dtype)
+        return mu.reshape(batch)
 
     def var(self, x, *, block_size: int = 256, tol: float | None = None) -> torch.Tensor:
-        """Posterior variance at ``(nq,) + input_shape`` query points
-        (``iterative.py:555-696``, the device branch): per block of
+        """Posterior variance at ``batch + input_shape`` query points, of
+        shape ``batch`` (``iterative.py:555-696``, the device branch): per block of
         ``block_size`` queries, ``kxX = (k L*)(xq, X)`` from K1, blocked ff
         CG on the ``(n, block)`` right-hand side through one shared K2 (or
         banded) launch per iteration, and the quadratic form ``U2 . S2``
@@ -392,7 +401,7 @@ class IterativeGPRegressor:
         relative_residual)``."""
         if self.prior is None:
             raise ValueError("var needs the prior covariance; a regressor built by from_specs has none")
-        xq = self._queries(x)
+        xq, batch = self._queries(x), self._batch_shape(x)
         a = self._anchors
         dt = torch.float32 if self.mode == "plain" else torch.float64
         M = self._preconditioner()
@@ -420,7 +429,7 @@ class IterativeGPRegressor:
             updates.append(update)
         self._var_info = info
         prior_var = self.prior.cov(xq.to(dt).reshape((-1,) + tuple(self.prior.input_shape)))
-        return torch.clamp(prior_var - torch.cat(updates), min=0.0)
+        return torch.clamp(prior_var - torch.cat(updates), min=0.0).reshape(batch)
 
     def std(self, x, **kw) -> torch.Tensor:
         """Posterior standard deviation: ``sqrt(var(x, **kw))``."""

@@ -201,7 +201,8 @@ def make_banded_matvec(spec, X0, X1, *, radius: float | None = None, mode=None) 
     ``(scale, terms)`` spec that is compactly supported along dimension 0.
 
     ``X0`` / ``X1``: ``(n, d)`` points (``(n,)`` means ``d = 1``), stored in
-    the mode's dtype on the device they came on (numpy lands on the CPU).
+    the mode's dtype, a tensor on its device and numpy input on the default
+    device (``config.resolve_device``).
     ``radius`` defaults to the spec's Wendland support along dimension 0;
     a spec without one raises ``ValueError``.
     """

@@ -3,7 +3,7 @@
 Port of ``linpde_gp_tpu/ops/diffops/lindiffop.py``: every operator is a
 coefficient table (``coefficients.py``), and the kernel transformation
 rules consume only that table.  Weak forms come with the FEM functionals
-(ROADMAP Queue 1 item 9).
+(ROADMAP Queue 1 item 9c).
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ class LinearDifferentialOperator(LinearFunctionOperator):
         return tuple(self._coefficients.items_flat())
 
     def weak_form(self, test_basis):
-        raise NotImplementedError("weak forms are not ported yet (ROADMAP Queue 1 item 9)")
+        raise NotImplementedError("weak forms are not ported yet (ROADMAP Queue 1 item 9c)")
 
     def __rmul__(self, other):
         if np.ndim(other) == 0:

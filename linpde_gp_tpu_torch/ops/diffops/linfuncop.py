@@ -1,10 +1,9 @@
 """Linear function operators (function -> function) and their algebra.
 
 Port of ``linpde_gp_tpu/ops/diffops/linfuncop.py``: shapes, sums,
-scalings, compositions, the identity and output selection.  Calling an
-operator applies it to a covariance function through the rule engine
-(``ops/transforms/dispatch.py``); applying it to functions and GPs and
-``to_linfunctl`` come with the functionals (ROADMAP Queue 1 item 9).
+scalings, compositions, the identity and output selection, and
+``to_linfunctl``.  Calling an operator applies it through the rule engine
+(``ops/transforms/dispatch.py``).
 """
 
 from __future__ import annotations
@@ -54,8 +53,14 @@ class LinearFunctionOperator:
 
         return apply_operator(self, obj, **kwargs)
 
-    def to_linfunctl(self, X):
-        raise NotImplementedError("linear functionals are not ported yet (ROADMAP Queue 1 item 9)")
+    def to_linfunctl(self, X, device=None):
+        """The functional ``f -> (L f)(X)`` (``linfuncop.py:60-69`` of the JAX
+        package), with ``X`` on ``device`` (see ``_EvaluationFunctional``)."""
+        from ..functionals.evaluation import _EvaluationFunctional
+
+        return (
+            _EvaluationFunctional(self.output_domain_shape, self.output_codomain_shape, X, device=device) @ self
+        )
 
     # -- arithmetic ------------------------------------------------------
     def __add__(self, other):

@@ -37,7 +37,7 @@ import functools
 import numpy as np
 import torch
 
-from ..config import mode_dtype, resolve_mode
+from ..config import mode_dtype, resolve_device, resolve_mode
 from . import ff
 
 # A term spec is a tuple: (coeff, factors) with factors a tuple of
@@ -269,10 +269,19 @@ def _row_blocks(n0, n1, device):
     return range(0, n0, step), step
 
 
+def _check_dims(terms, X0, X1) -> None:
+    """The points' width must be the spec's number of dimensions (as the
+    kernels' ``_cuda._dims`` checks it)."""
+    nd = len(terms[0][1])
+    if X0.shape[1] != nd or X1.shape[1] != nd:
+        raise ValueError(f"points have {X0.shape[1]}/{X1.shape[1]} dims, the spec {nd}")
+
+
 def gram_plain(terms, X0, X1, mode=None) -> torch.Tensor:
     """Plain PyTorch version of K1 on any device, in row blocks."""
     mode = resolve_mode(mode)
     X0, X1 = _as_points(X0, mode), _as_points(X1, mode)
+    _check_dims(terms, X0, X1)
     groups = _collapse_terms(tuple(terms))
     n0, n1 = X0.shape[0], X1.shape[0]
     out = torch.empty((n0, n1), dtype=X0.dtype, device=X0.device)
@@ -292,6 +301,7 @@ def gram_matvec_plain(spec, X0, X1, v, mode=None):
     mode = resolve_mode(mode)
     scale, terms = spec
     X0, X1 = _as_points(X0, mode), _as_points(X1, mode)
+    _check_dims(terms, X0, X1)
     (v, v_lo), vector = _as_rhs(v, X1, mode)
     if mode == "ff":
         v = v.double() if v_lo is None else v.double() + v_lo.double()
@@ -313,9 +323,10 @@ def gram_matvec_plain(spec, X0, X1, v, mode=None):
 
 
 def _as_points(X, mode) -> torch.Tensor:
-    """``(n, d)`` points in the mode's dtype (``(n,)`` means ``d = 1``),
-    on the device they came on (numpy input lands on the CPU)."""
-    X = torch.as_tensor(X)
+    """``(n, d)`` points in the mode's dtype (``(n,)`` means ``d = 1``): a
+    tensor on its device, numpy input on the default device
+    (``config.resolve_device``: the card when one is present)."""
+    X = X if isinstance(X, torch.Tensor) else torch.tensor(np.asarray(X), device=resolve_device())
     if X.ndim == 1:
         X = X[:, None]
     return X.to(mode_dtype(mode)).contiguous()
@@ -369,16 +380,17 @@ def gram_matrix(kernel, X0, X1=None, mode=None) -> torch.Tensor:
     ...)`` of ``kernel_term_specs(kernel)``, so K1 on CUDA tensors and
     :func:`gram_plain` on CPU tensors.  ``X0`` / ``X1``: ``(n,) +
     input_shape`` points (``X1=None``: ``X0``).  A kernel without a spec
-    raises ``NotImplementedError``: the dense engine that would evaluate it
-    is ROADMAP Queue 1 item 9."""
+    raises ``NotImplementedError`` (other closed forms are ROADMAP Queue 1
+    item 9d; the dense engine evaluates such kernels by their own
+    ``_evaluate``)."""
     spec = kernel_term_specs(kernel)
     if spec is None:
         raise NotImplementedError(
-            f"{type(kernel).__name__} has no sum-of-products spec; the dense engine is ROADMAP Queue 1 item 9"
+            f"{type(kernel).__name__} has no sum-of-products spec (other kernels: ROADMAP Queue 1 item 9d)"
         )
     scale, terms = spec
-    X0 = torch.as_tensor(X0)
-    X1 = X0 if X1 is None else torch.as_tensor(X1)
+    X0 = _as_points(X0, mode)
+    X1 = X0 if X1 is None else _as_points(X1, mode)
     d = max(kernel.input_size, 1)
     out = gram(terms, X0.reshape(-1, d), X1.reshape(-1, d), mode)
     return scale * out if scale != 1.0 else out

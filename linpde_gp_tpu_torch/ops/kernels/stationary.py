@@ -5,7 +5,7 @@ conventions: ``ExpQuad`` is ``exp(-0.5 ||(x0-x1)/l||^2)``; ``Matern``
 uses ``t = sqrt(2 nu) ||(x0-x1)/l||`` and, for half-integer ``nu``, the
 exact polynomial-times-exponential closed form).  General ``nu`` needs
 the modified Bessel function and comes with the rest of the symbolic
-layer (ROADMAP Queue 1 item 9).
+layer (ROADMAP Queue 1 item 9d).
 """
 
 from __future__ import annotations
@@ -104,7 +104,7 @@ class Matern(StationaryMixin, CovarianceFunction):
         if self._poly is None:
             raise NotImplementedError(
                 f"Matern(nu={self._nu}): general nu (Bessel evaluation) is not ported yet "
-                "(ROADMAP Queue 1 item 9)"
+                "(ROADMAP Queue 1 item 9d)"
             )
         t = self._scaled_distances(x0, x1, self._scale_factors)
         return self._poly._evaluate(t) * torch.exp(-t)

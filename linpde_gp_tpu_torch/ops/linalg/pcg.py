@@ -3,8 +3,8 @@ preconditioner.
 
 Port of the main-path subset of ``linpde_gp_tpu/ops/linalg/pcg.py``:
 :func:`pcg_ff` with its two step functions, the blocked multi-right-hand-
-side :func:`pcg_block_ff` with its two step functions and the plain
-:func:`pcg_block`, the ff scalar helpers, :func:`ff_dot_cols` and
+side :func:`pcg_block_ff` with its two step functions, the plain
+:func:`pcg` and :func:`pcg_block`, the ff scalar helpers, :func:`ff_dot_cols` and
 :func:`ff_norm2_cols`,
 :class:`NystromPreconditioner`, :func:`nystrom_preconditioner_device`
 and :func:`landmark_indices`.
@@ -200,6 +200,45 @@ def pcg_ff(
     relres = float(np.sqrt(rn2)) / b_norm
     x_hi, x_lo = two_sum(x[0], x[1])
     return PCGResult(x_hi, k, relres, x_lo)
+
+
+# -- plain CG ---------------------------------------------------------------------------
+
+
+def pcg(
+    matvec: Callable, b: torch.Tensor, *, M: Callable | None = None, tol: float = 1e-6, maxiter: int = 512,
+    x0: torch.Tensor | None = None,
+) -> PCGResult:
+    """Solve ``A x = b`` (A SPD) by preconditioned CG in ``b``'s dtype
+    (``pcg.py:40`` of the JAX package): flexible Polak-Ribiere beta clamped
+    at 0, stopping once ``||r|| <= tol ||b||`` (``tol`` absolute for ``b =
+    0``, which returns ``x0`` or zero in 0 iterations) or at ``maxiter``;
+    the host reads ``||r||`` once per iteration.  ``M`` applies an
+    approximation of ``A^{-1}``; ``x_lo`` of the result is zero."""
+    if M is None:
+        M = lambda r: r  # noqa: E731
+    x = torch.zeros_like(b) if x0 is None else x0.clone()
+    r = b if x0 is None else b - matvec(x)
+    z = M(r)
+    p = z
+    rz = torch.dot(r, z)
+    b_norm = float(torch.linalg.vector_norm(b))
+    threshold = tol * (b_norm if b_norm > 0 else 1.0)
+    k = 0
+    r_norm = float(torch.linalg.vector_norm(r))
+    while r_norm > threshold and k < maxiter:
+        Ap = matvec(p)
+        alpha = rz / torch.dot(p, Ap)
+        x = x + alpha * p
+        r_new = r - alpha * Ap
+        z = M(r_new)
+        rz_new = torch.dot(r_new, z)
+        beta = torch.clamp((rz_new - torch.dot(z, r)) / rz, min=0.0)
+        p = z + beta * p
+        r, rz = r_new, rz_new
+        r_norm = float(torch.linalg.vector_norm(r))
+        k += 1
+    return PCGResult(x, k, r_norm / (b_norm if b_norm > 0 else 1.0), torch.zeros_like(x))
 
 
 # -- blocked CG: many right-hand sides through one shared matvec -----------------------

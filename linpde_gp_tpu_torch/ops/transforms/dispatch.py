@@ -11,14 +11,16 @@ product route only:
 
 Where the JAX package falls back to radial closed forms or to autodiff
 (``dispatch.py:274-284`` there), this port raises ``NotImplementedError``:
-those routes come with ROADMAP Queue 1 item 9.  It never returns a
-different kernel in their place.
+those routes come with ROADMAP Queue 1 item 9d.  It never returns a
+different kernel in their place.  Operators act on processes and on zero
+functions here too; other functions wait for item 9b.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ...models.functions.base import Function, Zero
 from ..diffops.coefficients import MultiIndex, PartialDerivativeCoefficients
 from ..diffops.lindiffop import LinearDifferentialOperator
 from ..diffops.linfuncop import (
@@ -33,7 +35,7 @@ from ..kernels.arithmetic import ScaledCovarianceFunction, SumCovarianceFunction
 from ..kernels.base import CovarianceFunction
 from .product import SumOfProductsKernel, transform_product_kernel
 
-_NOT_PORTED = "(radial closed forms and the autodiff fallback are ROADMAP Queue 1 item 9)"
+_NOT_PORTED = "(radial closed forms and the autodiff fallback are ROADMAP Queue 1 item 9d)"
 
 
 def as_coefficients(op: LinearFunctionOperator) -> PartialDerivativeCoefficients | None:
@@ -84,15 +86,42 @@ def compose_coefficients(
 
 
 def apply_operator(op: LinearFunctionOperator, obj, /, **kwargs):
-    """``op(obj)`` for a covariance function: ``L k L*`` by default, one
-    slot with ``argnum=``."""
+    """``op(obj)``: for a covariance function ``L k L*`` by default, one slot
+    with ``argnum=``; for a (posterior) GP the pushforward process
+    (``dispatch.py:120-130`` of the JAX package); for a cross-covariance its
+    process slot; for a function :func:`apply_operator_to_function`."""
+    from ...models.gp import ConditionalGaussianProcess, GaussianProcess
+    from ...models.randprocs import DeterministicProcess
+    from ..crosscov.base import ProcessVectorCrossCovariance
+
     if isinstance(obj, CovarianceFunction):
         argnum = kwargs.get("argnum", None)
         if argnum is None:
             return apply_operator_to_kernel(op, apply_operator_to_kernel(op, obj, argnum=1), argnum=0)
         return apply_operator_to_kernel(op, obj, argnum=argnum)
+    if isinstance(obj, ConditionalGaussianProcess):
+        return obj._apply_operator(op)
+    if isinstance(obj, GaussianProcess):
+        return GaussianProcess(apply_operator(op, obj.mean), apply_operator(op, obj.cov), device=obj.device)
+    if isinstance(obj, DeterministicProcess):
+        return DeterministicProcess(apply_operator(op, obj.as_fn()))
+    if isinstance(obj, ProcessVectorCrossCovariance):
+        return obj.apply_operator(op)
+    if isinstance(obj, Function):
+        return apply_operator_to_function(op, obj)
+    raise TypeError(f"Cannot apply {op!r} to object of type {type(obj).__name__}.")
+
+
+def apply_operator_to_function(op: LinearFunctionOperator, f: Function) -> Function:
+    """``op(f)`` symbolically: the identity keeps ``f``, and a zero function
+    stays zero with the operator's output shapes.  Other functions wait for
+    ROADMAP Queue 1 item 9b."""
+    if isinstance(op, Identity):
+        return f
+    if isinstance(f, Zero):
+        return Zero(op.output_domain_shape, op.output_codomain_shape)
     raise NotImplementedError(
-        f"Applying an operator to {type(obj).__name__} is not ported yet (ROADMAP Queue 1 item 9)."
+        f"Applying an operator to {type(f).__name__} is not ported yet (functions: ROADMAP Queue 1 item 9b)."
     )
 
 
@@ -116,7 +145,7 @@ def apply_operator_to_kernel(
         out1 = kernel.output_shape_1 if argnum == 0 else op.output_codomain_shape
         return ZeroCovarianceFunction(op.output_domain_shape, out0, out1)
     if isinstance(op, SelectOutput):
-        raise NotImplementedError("multi-output kernels are not ported yet (ROADMAP Queue 1 item 9)")
+        raise NotImplementedError("multi-output kernels are not ported yet (ROADMAP Queue 1 item 9d)")
 
     # -- operator structure ---------------------------------------------------
     coeffs = as_coefficients(op)

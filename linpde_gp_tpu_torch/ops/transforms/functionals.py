@@ -1,0 +1,90 @@
+"""Functional application dispatch (the ``L(.)`` rule table).
+
+Port of ``linpde_gp_tpu/ops/transforms/functionals.py``
+(``apply_functional``, ``:36``): the routes for covariance functions,
+process-vector cross-covariances, GPs and their posteriors, deterministic
+processes and functions (``Zero``, scaled, sum and composite functionals
+symbolically).  The weak-form and Lebesgue-integral routes (``:42-44``,
+``:118-149`` there) come with ROADMAP item 9c, with their functionals.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ...config import resolve_device
+from ...models.functions.base import Function, Zero
+from ..crosscov.base import KernelFunctionalCrossCov, ProcessVectorCrossCovariance, apply_functional_to_crosscov
+from ..functionals.base import (
+    CompositeLinearFunctional,
+    LinearFunctional,
+    ScaledLinearFunctional,
+    SumLinearFunctional,
+)
+from ..kernels.base import CovarianceFunction
+
+
+def apply_functional(functional: LinearFunctional, obj, /, **kwargs):
+    from ...models.gp import ConditionalGaussianProcess, GaussianProcess
+    from ...models.randprocs import DeterministicProcess
+    from ...models.randvars import Constant as ConstantRV
+    from ...models.randvars import Normal
+    from ..linalg.covariance import Covariance
+
+    if isinstance(obj, CovarianceFunction):
+        return KernelFunctionalCrossCov(obj, functional, kwargs.get("argnum", 1))
+
+    if isinstance(obj, ProcessVectorCrossCovariance):
+        return apply_functional_to_crosscov(functional, obj)
+
+    if isinstance(obj, ConditionalGaussianProcess):
+        # The posterior's functional marginal through its cached factor and
+        # weights, and its solver (refined or plain Cholesky).
+        block = apply_functional_to_crosscov(functional, obj.kLas).matrix
+        prior_rv = apply_functional(functional, obj.prior)
+        mean = prior_rv.mean.reshape(-1).to(block) + block @ obj.representer_weights
+        cov = prior_rv.cov.matrix.to(block) - block @ obj.solve_gram(block.T)
+        return Normal(
+            mean.reshape(functional.output_shape),
+            Covariance(cov, functional.output_shape, functional.output_shape),
+        )
+
+    if isinstance(obj, GaussianProcess):
+        kLa = apply_functional(functional, obj.cov, argnum=1)
+        gram = apply_functional_to_crosscov(functional, kLa)
+        mean = functional.apply_to_function(obj.mean)
+        return Normal(mean, gram)
+
+    if isinstance(obj, DeterministicProcess):
+        return ConstantRV(apply_functional(functional, obj.as_fn()))
+
+    if isinstance(obj, Function):
+        return _apply_to_function_symbolic(functional, obj)
+
+    raise TypeError(f"Cannot apply functional {functional!r} to {type(obj).__name__}.")
+
+
+def _apply_to_function_symbolic(functional: LinearFunctional, f: Function):
+    """Function application with the exact shortcuts: zero functions,
+    scaled, sum and composite functionals."""
+    if isinstance(f, Zero):
+        return torch.zeros(functional.output_shape, dtype=torch.float64, device=resolve_device())
+    if isinstance(functional, ScaledLinearFunctional):
+        return functional.scalar * _apply_to_function_symbolic(functional.linfunctl, f)
+    if isinstance(functional, SumLinearFunctional):
+        out = None
+        for s in functional.summands:
+            term = _apply_to_function_symbolic(s, f)
+            out = term if out is None else out + term
+        return out
+    if isinstance(functional, CompositeLinearFunctional):
+        from .dispatch import apply_operator_to_function
+
+        g = f
+        if functional.linfuncop is not None:
+            g = apply_operator_to_function(functional.linfuncop, g)
+        vals = _apply_to_function_symbolic(functional.linfunctl, g)
+        if functional.linop is not None:
+            vals = functional.linop @ vals.reshape(-1)
+        return vals.reshape(functional.output_shape)
+    return functional.apply_to_function(f)

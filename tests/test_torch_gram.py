@@ -357,3 +357,48 @@ def test_wide_panel_is_the_exact_sum_of_an_ff_pair(shape):
     assert torch.equal(panel, x.float().double() + lo.double())
     assert torch.equal(_cuda.wide_panel(hi), hi.double())
     assert _cuda.wide_panel(x).data_ptr() == x.data_ptr()  # a contiguous f64 panel is taken as it is
+
+
+def test_numpy_input_lands_on_the_default_device(monkeypatch):
+    """Numpy points go to ``config.resolve_device()`` (here patched to the
+    meta device, which has no route), a tensor stays on its device."""
+    from linpde_gp_tpu_torch.config import config
+    from linpde_gp_tpu_torch.ops.gram import _as_points, gram_matrix
+
+    monkeypatch.setattr(config, "device", "meta")
+    Xnp = _points(8, 3).astype(np.float64)
+    assert _as_points(Xnp, "f64").device.type == "meta"
+    assert _as_points(torch.from_numpy(Xnp), "f64").device.type == "cpu"
+    with pytest.raises(ValueError, match="no route for device meta"):
+        gram(OBS[1], Xnp, Xnp, "f64")
+    with pytest.raises(ValueError, match="no route for device meta"):
+        gram_matvec(OBS, Xnp, Xnp, np.ones(8), "f64")
+    k = lgt_port_heat_kernel()
+    with pytest.raises(ValueError, match="no route for device meta"):
+        gram_matrix(k, Xnp, Xnp, "f64")
+    X = torch.from_numpy(Xnp)
+    assert gram(OBS[1], X, X, "f64").device.type == "cpu"
+    assert gram_matrix(k, X, X, "f64").device.type == "cpu"
+
+
+def lgt_port_heat_kernel():
+    from linpde_gp_tpu_torch.ops import kernels
+
+    return kernels.TensorProduct(
+        kernels.Matern((), nu=1.5, lengthscales=2.5), kernels.Matern((), nu=2.5, lengthscales=2.0)
+    )
+
+
+@pytest.mark.parametrize("fn", ["gram_plain", "gram_matvec_plain"])
+def test_plain_versions_check_the_points_width(fn):
+    """The plain versions refuse points whose width is not the spec's, as
+    the kernels do (a (4, 6) batch of (3, 2) queries read as 6 columns)."""
+    from linpde_gp_tpu_torch.ops.gram import gram_matvec_plain, gram_plain
+
+    X = torch.from_numpy(_points(12, 4).astype(np.float64))
+    wide = X.reshape(4, 6)
+    with pytest.raises(ValueError, match="dims, the spec 2"):
+        if fn == "gram_plain":
+            gram_plain(OBS[1], wide, X, "f64")
+        else:
+            gram_matvec_plain(OBS, wide, X, torch.ones(12, dtype=torch.float64), "f64")

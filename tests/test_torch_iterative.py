@@ -218,3 +218,34 @@ def test_wendland_routes_banded(wendland_case):
     # The JAX regressor on the same data, within the sum of both bounds.
     np.testing.assert_allclose(w, jax_out["w"], rtol=0, atol=2e-5 * np.abs(w_ref).max())
     np.testing.assert_allclose(mean, jax_out["mean"], rtol=0, atol=2e-6)
+
+
+def test_batch_shaped_queries_match_jax():
+    """Queries on a (4, 3, 2) grid (ROADMAP Queue 3's batch-shaped-query
+    fault): heat prior, n = 300, noise 1e-4, rank 0, tol 1e-10, f64 on the
+    CPU; mean and var of shape (4, 3), within 1e-6 of max |mean| of the JAX
+    regressor."""
+    from linpde_gp_tpu_torch.ops.diffops import HeatOperator
+
+    rng = np.random.default_rng(2)
+    n = 300
+    X = np.stack([rng.uniform(0, 5, n), rng.uniform(-1, 1, n)], -1)
+    Y = rng.standard_normal(n)
+    xq = np.stack(np.meshgrid(np.linspace(0.5, 4.5, 4), np.linspace(-0.8, 0.8, 3), indexing="ij"), -1)
+    kw = dict(noise_variance=1e-4, precond_rank=0, tol=1e-10)
+    reg = IterativeGPRegressor(_heat_prior(), X, Y, L=HeatOperator((2,), alpha=0.1), mode="f64", device="cpu", **kw)
+    jprior = lgt.GaussianProcess(
+        lgt.functions.Zero((2,)),
+        1.0 * lgt.kernels.TensorProduct(
+            lgt.kernels.Matern((), nu=1.5, lengthscales=2.5), lgt.kernels.Matern((), nu=2.5, lengthscales=2.0)
+        ),
+    )
+    jreg = JaxRegressor(jprior, X, Y, L=diffops.HeatOperator((2,), alpha=0.1), **kw)
+    m_ref, v_ref = np.asarray(jreg.mean(jnp.asarray(xq))), np.asarray(jreg.var(jnp.asarray(xq)))
+    mean, var = reg.mean(xq), reg.var(xq)
+    assert mean.shape == (4, 3) and var.shape == (4, 3) and m_ref.shape == (4, 3)
+    scale = np.abs(m_ref).max()
+    np.testing.assert_allclose(mean.numpy(), m_ref, rtol=0, atol=1e-6 * scale)
+    np.testing.assert_allclose(var.numpy(), v_ref, rtol=0, atol=1e-6 * scale)
+    # The same queries flattened give the same values.
+    np.testing.assert_array_equal(reg.mean(xq.reshape(12, 2)).numpy(), mean.numpy().reshape(12))

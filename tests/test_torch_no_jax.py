@@ -55,6 +55,17 @@ _MODULES = [
     "linpde_gp_tpu_torch.models.functions.polynomial",
     "linpde_gp_tpu_torch.models.gp",
     "linpde_gp_tpu_torch.models.iterative",
+    "linpde_gp_tpu_torch.models.randvars",
+    "linpde_gp_tpu_torch.models.randprocs",
+    "linpde_gp_tpu_torch.ops.linalg.linops",
+    "linpde_gp_tpu_torch.ops.linalg.covariance",
+    "linpde_gp_tpu_torch.ops.linalg.refine",
+    "linpde_gp_tpu_torch.ops.functionals",
+    "linpde_gp_tpu_torch.ops.functionals.base",
+    "linpde_gp_tpu_torch.ops.functionals.evaluation",
+    "linpde_gp_tpu_torch.ops.crosscov",
+    "linpde_gp_tpu_torch.ops.crosscov.base",
+    "linpde_gp_tpu_torch.ops.transforms.functionals",
 ]
 
 

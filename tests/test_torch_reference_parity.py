@@ -1,0 +1,111 @@
+"""Recorded-fixture parity of the port's dense conditioning engine.
+
+Ports ``test_parity_poisson_1d``, ``_heat_1d`` and ``_poisson_2d`` of
+``tests/test_reference_parity.py``: the port's
+``GaussianProcess.condition_on_observations`` (float64 on the CPU,
+through the kernels' plain versions) on the same configs, held to the
+same ``tests/fixtures/reference_parity.json`` at the same ``TOL = 1e-6``,
+and to the JAX posterior on the same inputs at the same tolerance.
+``poisson_fem`` and ``poisson_inverse_rhs`` need FEM functionals and
+non-zero functions (ROADMAP items 9c and 9b).
+"""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import linpde_gp_tpu as jlgt
+import linpde_gp_tpu_torch as lgt
+from linpde_gp_tpu.ops import diffops as jdiffops
+from linpde_gp_tpu_torch.ops import diffops
+
+torch.set_num_threads(1)
+
+FIXTURES = json.load(open(os.path.join(os.path.dirname(__file__), "fixtures", "reference_parity.json")))
+NOISE = FIXTURES["noise"]
+TOL = 1e-6
+
+
+def _check(mean, std, ref_mean, ref_std):
+    scale = max(np.max(np.abs(ref_mean)), 1.0)
+    np.testing.assert_allclose(mean, ref_mean, rtol=0, atol=TOL * scale)
+    np.testing.assert_allclose(std, ref_std, rtol=TOL, atol=TOL * scale)
+
+
+def _poisson_1d(pkg, dops):
+    def b(n):
+        return pkg.Normal(np.zeros(n), NOISE * np.eye(n))
+
+    prior = pkg.GaussianProcess(pkg.functions.Zero(()), 2.0**2 * pkg.kernels.ExpQuad((), lengthscales=1.0))
+    X_pde = np.linspace(-0.8, 0.8, 8)
+    post = prior.condition_on_observations(np.full(8, 2.0), X=X_pde, L=-1.0 * dops.Laplacian(()), b=b(8))
+    return post.condition_on_observations(np.asarray([0.0, 1.0]), X=np.asarray([-1.0, 1.0]), b=b(2))
+
+
+def _heat_1d(pkg, dops):
+    def b(n):
+        return pkg.Normal(np.zeros(n), NOISE * np.eye(n))
+
+    prior = pkg.GaussianProcess(
+        pkg.functions.Zero((2,)),
+        1.0 * pkg.kernels.TensorProduct(
+            pkg.kernels.Matern((), nu=1.5, lengthscales=2.5), pkg.kernels.Matern((), nu=2.5, lengthscales=2.0)
+        ),
+    )
+    x_ic = np.linspace(-1.0 + 1e-6, 1.0 - 1e-6, 7)
+    X_ic = np.stack([np.zeros(7), x_ic], -1)
+    post = prior.condition_on_observations(np.sin(np.pi * 0.5 * (x_ic + 1.0)), X=X_ic, b=b(7))
+    t_bc = np.linspace(0.0, 5.0, 6)
+    for xb in (-1.0, 1.0):
+        post = post.condition_on_observations(np.zeros(6), X=np.stack([t_bc, np.full(6, xb)], -1), b=b(6))
+    tg = np.linspace(0.0, 5.0, 8)
+    xg = np.linspace(-1.0, 1.0, 5)
+    X_pde = np.stack(np.meshgrid(tg, xg, indexing="ij"), -1).reshape(-1, 2)
+    return post.condition_on_observations(np.zeros(40), X=X_pde, L=dops.HeatOperator((2,), alpha=0.1), b=b(40))
+
+
+def _poisson_2d(pkg, dops):
+    def b(n):
+        return pkg.Normal(np.zeros(n), NOISE * np.eye(n))
+
+    prior = pkg.GaussianProcess(
+        pkg.functions.Zero((2,)),
+        1.0 * pkg.kernels.TensorProduct(
+            pkg.kernels.Matern((), nu=2.5, lengthscales=1.0), pkg.kernels.Matern((), nu=2.5, lengthscales=1.0)
+        ),
+    )
+    e = 1e-6
+    s = np.linspace(-1.0 + e, 1.0 - e, 5)
+    post = prior
+    for edge in (
+        np.stack([np.full(5, -1.0), s], -1),
+        np.stack([np.full(5, 1.0), s], -1),
+        np.stack([s, np.full(5, -1.0)], -1),
+        np.stack([s, np.full(5, 1.0)], -1),
+    ):
+        post = post.condition_on_observations(np.zeros(5), X=edge, b=b(5))
+    g = np.linspace(-1.0, 1.0, 5)
+    X_pde = np.stack(np.meshgrid(g, g, indexing="ij"), -1).reshape(-1, 2)
+    return post.condition_on_observations(np.full(25, 2.0), X=X_pde, L=-1.0 * dops.Laplacian((2,)), b=b(25))
+
+
+CASES = {"poisson_1d": _poisson_1d, "heat_1d": _heat_1d, "poisson_2d": _poisson_2d}
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_parity(name):
+    """The port against the recorded fixture and against the JAX posterior,
+    both at TOL."""
+    fx = FIXTURES[name]
+    xq = np.asarray(fx["xq"])
+    post = CASES[name](lgt, diffops)
+    assert post.device == torch.device("cpu")
+    mean, std = post.mean(xq), post.std(xq)
+    assert mean.dtype == torch.float64 and mean.shape == np.asarray(fx["mean"]).shape
+    _check(mean.numpy(), std.numpy(), np.asarray(fx["mean"]), np.asarray(fx["std"]))
+
+    jpost = CASES[name](jlgt, jdiffops)
+    _check(mean.numpy(), std.numpy(), np.asarray(jpost.mean(xq)), np.asarray(jpost.std(xq)))
