@@ -17,7 +17,9 @@ Both engines evaluate kernels through hand-written CUDA kernels for Gram
 assembly and the Gram matvec (``csrc/gram.cuh``) and the banded matvec of
 compactly supported kernels (``csrc/banded.cuh``), compiled per
 kernel-spec structure at first use (``ops/_cuda.py``).  Entry points run
-on the card when one is present (``config.device`` overrides).
+on the card; the CPU runs the kernels' plain versions only when asked for
+(``device="cpu"`` or ``config.device = "cpu"``), and without a card and
+without that request they raise.
 """
 
 import torch
@@ -32,7 +34,9 @@ from .models import (
     IterativeGPRegressor,
     Normal,
     asrandvar,
+    domains,
     functions,
+    problems,
     randvars,
 )
 from .ops import crosscov, diffops, functionals, kernels, linalg, transforms
@@ -49,7 +53,9 @@ __all__ = [
     "config",
     "models",
     "ops",
+    "domains",
     "functions",
+    "problems",
     "randvars",
     "kernels",
     "diffops",

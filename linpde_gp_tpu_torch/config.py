@@ -32,8 +32,8 @@ class _Config:
     #: Arithmetic mode (one of :data:`MODES`) used when a call passes none.
     mode: str | None = None
 
-    #: Device used when a call passes none; ``None`` means "cuda" when a
-    #: card is present and "cpu" otherwise.
+    #: Device used when a call passes none; ``None`` means "cuda", and
+    #: raises where there is no card: the CPU runs only when asked for.
     device: str | None = None
 
     #: K1 (Gram) thread-block side: blocks of ``gram_tile x gram_tile``
@@ -78,10 +78,16 @@ def mode_dtype(mode: str) -> torch.dtype:
 
 
 def resolve_device(device=None) -> torch.device:
+    """``device``, else ``config.device``, else the card: without one,
+    ``RuntimeError``, never a quiet fall back to the CPU."""
     if device is None:
         device = config.device
     if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: pass device=\"cpu\" or set config.device = \"cpu\" to run on the CPU"
+            )
+        device = "cuda"
     return torch.device(device)
 
 

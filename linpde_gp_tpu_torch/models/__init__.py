@@ -1,14 +1,17 @@
-"""GP models of the port: random variables and processes, the dense
-conditioning engine and the gram-free regressor."""
+"""GP models of the port: functions, domains, random variables and
+processes, the dense conditioning engine, the gram-free regressor and the
+PDE problems."""
 
-from . import functions, randvars
+from . import domains, functions, problems, randvars
 from .gp import ConditionalGaussianProcess, GaussianProcess
 from .iterative import IterativeGPRegressor
 from .randprocs import DeterministicProcess, asrandproc
 from .randvars import Constant, Normal, RandomVariable, asrandvar
 
 __all__ = [
+    "domains",
     "functions",
+    "problems",
     "randvars",
     "GaussianProcess",
     "ConditionalGaussianProcess",

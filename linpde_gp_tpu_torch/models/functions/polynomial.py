@@ -1,6 +1,7 @@
 """Univariate polynomials with exact rational coefficient arithmetic.
 
-Port of ``linpde_gp_tpu/models/functions/polynomial.py``: exact
+Port of ``linpde_gp_tpu/models/functions/polynomial.py`` (``Monomial``,
+``Polynomial``, ``RationalPolynomial``): exact
 ``Fraction`` arithmetic is the host-side symbolic substrate that derives
 the Matérn and Wendland closed-form kernels; evaluation is a Horner
 chain on torch tensors.
@@ -22,6 +23,27 @@ def _horner(coeffs: Sequence[float], x: torch.Tensor) -> torch.Tensor:
     for c in reversed(coeffs[:-1]):
         res = res * x + c
     return res
+
+
+class Monomial(Function):
+    """``x^degree`` over scalar inputs."""
+
+    def __init__(self, degree: int) -> None:
+        super().__init__((), ())
+        degree = int(degree)
+        if degree < 0:
+            raise ValueError("Monomial degree must be non-negative.")
+        self._degree = degree
+
+    @property
+    def degree(self) -> int:
+        return self._degree
+
+    def _evaluate(self, x):
+        return x**self._degree
+
+    def as_polynomial(self) -> "Polynomial":
+        return Polynomial((0,) * self._degree + (1,))
 
 
 class Polynomial(Function):
@@ -69,6 +91,10 @@ class Polynomial(Function):
         return 0.0
 
     @staticmethod
+    def _one():
+        return 1.0
+
+    @staticmethod
     def _div(c, k):
         return c / k
 
@@ -83,19 +109,21 @@ class Polynomial(Function):
             )
         if np.ndim(other) == 0:
             return self + self._ring()([other])
-        return NotImplemented
+        return super().__add__(other)
 
     __radd__ = __add__
 
     def __sub__(self, other):
         if isinstance(other, Polynomial) or np.ndim(other) == 0:
             return self + (-1 * other if not isinstance(other, Polynomial) else -other)
-        return NotImplemented
+        return super().__sub__(other)
 
     def __neg__(self):
         return self._ring()([-c for c in self._raw_coeffs()])
 
     def __mul__(self, other):
+        if isinstance(other, Monomial):
+            other = self._ring()([self._zero()] * other.degree + [self._one()])
         if isinstance(other, Polynomial):
             a, b = self._raw_coeffs(), other._raw_coeffs()
             out = [self._zero()] * (len(a) + len(b) - 1)
@@ -134,6 +162,10 @@ class RationalPolynomial(Polynomial):
     @staticmethod
     def _zero():
         return Fraction(0)
+
+    @staticmethod
+    def _one():
+        return Fraction(1)
 
     @staticmethod
     def _div(c, k):

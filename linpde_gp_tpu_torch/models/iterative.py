@@ -24,21 +24,35 @@ W A11^{-1} W^T`` with ``A22 = L k L* + sigma^2 I``, ``W = (L k)(X, X1)``
 and ``A11 = k(X1, X1) + anchor_noise I``.  The posterior variance solves
 blocks of query columns by blocked ff CG (``pcg_block_ff``), one shared
 K2 (or banded) launch of the multi-column route per iteration.  The
-prior mean is zero; grid mode comes with a later slice.
+prior mean is zero.
+
+Grid mode (``iterative.py:189-225`` of the JAX package): collocation
+points given as a ``TensorProductGrid`` of two or more factors make the
+observation Gram a sum of Kronecker products of small factor tables, and
+the CG matvec (of the solve and of ``var``'s blocked CG) takes O(N (n_1 +
+... + n_d)) instead of K2's O(N^2): in mode ff on 2-factor grids the
+compensated :class:`~ops.kron_ff.KronFFMatvec`; in modes f64 and plain
+(and ff on other grids) the Kronecker operator of
+:func:`~ops.kron_ff.kron_linop`, in float64 (plain: float32).  The
+Nyström build, the anchor blocks, the mean and ``var``'s ``kxX`` stay on
+K1 and K2 at the flattened grid points (C order, row ``t * n_x + x``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..config import mode_dtype, resolve_device, resolve_mode
 from ..ops.banded import compact_support_radius, make_banded_matvec
 from ..ops.ff import ff_split
 from ..ops.gram import gram, gram_matrix, gram_matvec, kernel_term_specs
+from ..ops.kron_ff import KronFFMatvec, kron_linop
 from ..ops.linalg.chol import cho_solve, cholesky
 from ..ops.linalg.pcg import landmark_indices, nystrom_preconditioner_device, pcg_block_ff, pcg_ff
 from ..ops.transforms.dispatch import apply_operator_to_kernel
 from ..utils.shapes import size
+from .domains.grid import grid_factors
 from .functions.base import Zero
 from .gp import GaussianProcess
 
@@ -53,7 +67,8 @@ class IterativeGPRegressor:
         Scalar-output :class:`GaussianProcess` with a ``Zero`` mean and a
         kernel of the closed-form sum-of-products family.
     X:
-        ``(n,) + input_shape`` collocation points.
+        ``(n,) + input_shape`` collocation points, or a ``TensorProductGrid``
+        (grid mode).
     Y:
         ``(n,)`` observations of ``L u (x_i) + eps``.
     L:
@@ -109,11 +124,12 @@ class IterativeGPRegressor:
             raise NotImplementedError(
                 "the kernel has no sum-of-products spec (other kernels: ROADMAP Queue 1 item 9d)"
             )
-        X = torch.as_tensor(X).reshape((-1,) + tuple(prior.input_shape))
+        grid = grid_factors(X)  # before X becomes a tensor, which drops the factors
+        X = torch.as_tensor(np.asarray(X) if grid is not None else X).reshape((-1,) + tuple(prior.input_shape))
         self.prior = prior
         self.L = L
         self._k_cross = k_cross
-        self._setup(obs_spec, cross_spec, X, Y, noise_variance, tol, maxiter, precond_rank, mode, device)
+        self._setup(obs_spec, cross_spec, X, Y, noise_variance, tol, maxiter, precond_rank, mode, device, grid)
         if anchor_X is not None:
             if anchor_Y is None:
                 raise ValueError("anchor_X needs anchor_Y")
@@ -139,15 +155,19 @@ class IterativeGPRegressor:
         """A regressor for given ``(scale, terms)`` specs of the
         observation kernel ``L k L*`` and the cross kernel ``k L*``, with
         ``X`` as ``(n, d)`` points; the other parameters as the
-        constructor's.  It has no prior, so no anchors and no variance."""
+        constructor's (``X`` may be a ``TensorProductGrid``).  It has no prior,
+        so no anchors and no variance."""
         self = cls.__new__(cls)
         self.prior = None
         self.L = None
         self._k_cross = None
-        self._setup(obs_spec, cross_spec, X, Y, noise_variance, tol, maxiter, precond_rank, mode, device)
+        grid = grid_factors(X)
+        if grid is not None:
+            X = np.asarray(X).reshape(-1, len(grid))
+        self._setup(obs_spec, cross_spec, X, Y, noise_variance, tol, maxiter, precond_rank, mode, device, grid)
         return self
 
-    def _setup(self, obs_spec, cross_spec, X, Y, noise_variance, tol, maxiter, precond_rank, mode, device):
+    def _setup(self, obs_spec, cross_spec, X, Y, noise_variance, tol, maxiter, precond_rank, mode, device, grid=None):
         self.mode = resolve_mode(mode)
         self.device = resolve_device(device)
         dtype = mode_dtype(self.mode)
@@ -159,11 +179,13 @@ class IterativeGPRegressor:
         self.maxiter = int(maxiter)
         self._obs_spec = obs_spec
         self._cross_spec = cross_spec
-        # Compact support along dimension 0: the CG matvec walks only the
-        # band, if the band skips column tiles (iterative.py:235-247 of the
-        # JAX package).
+        self._grid_factors = grid
+        self._setup_grid()
+        # Compact support along dimension 0 and no grid operator: the CG
+        # matvec walks only the band, if the band skips column tiles
+        # (iterative.py:235-247 of the JAX package).
         self._banded = None
-        if compact_support_radius(obs_spec[1], 0) is not None:
+        if self._gram_linop is None and compact_support_radius(obs_spec[1], 0) is not None:
             banded = make_banded_matvec(obs_spec, self.X, self.X, mode=self.mode)
             if banded.band_tiles < banded.total_tiles:
                 self._banded = banded
@@ -177,6 +199,25 @@ class IterativeGPRegressor:
         self._anchor_weights = None
         self._solve_info = None
         self._var_info = None
+
+    def _setup_grid(self):
+        """The grid operators (``iterative.py:189-225`` of the JAX package):
+        ``_gram_linop``, the observation Gram's Kronecker operator, and in
+        mode ff on 2-factor grids ``_kron_ff``, its compensated matvec, which
+        the CG takes in its place; both ``None`` off grids.  They are built
+        from the spec and the factors rounded to the mode's dtype, as the
+        points are stored, so that the CG operator and the K1 and K2 blocks
+        (Nyström, anchors, mean, ``kxX``) see the same points."""
+        self._gram_linop = self._kron_ff = None
+        factors = self._grid_factors
+        if factors is None or len(factors) < 2 or len(factors) != self.X.shape[1]:
+            return
+        np_dtype = np.float64 if self.mode == "f64" else np.float32
+        factors = [np.asarray(g).astype(np_dtype).astype(np.float64) for g in factors]
+        dtype = torch.float32 if self.mode == "plain" else torch.float64
+        self._gram_linop = kron_linop(self._obs_spec, factors, dtype=dtype, device=self.device)
+        if self.mode == "ff" and len(factors) == 2:
+            self._kron_ff = KronFFMatvec(self._obs_spec, factors, device=self.device)
 
     # -- the anchor batch (iterative.py:255-279 of the JAX package) ------------
     @property
@@ -200,18 +241,20 @@ class IterativeGPRegressor:
         )
 
     # -- checkpoint / resume (utils/serialization.py) ------------------------------
-    # The solved state and the geometry pickle; the banded schedule is
-    # dropped and rebuilt on load, on the device the tensors come back on.
+    # The solved state and the geometry pickle; the banded schedule and the
+    # grid operators are dropped and rebuilt on load (from the points, or
+    # the spec and the grid factors), on the device the tensors come back on.
     def __getstate__(self):
         state = self.__dict__.copy()
         state["_had_banded"] = self._banded is not None
-        state["_banded"] = None
+        state["_banded"] = state["_gram_linop"] = state["_kron_ff"] = None
         return state
 
     def __setstate__(self, state):
         had_banded = state.pop("_had_banded", False)
         self.__dict__.update(state)
         self.device = self.X.device
+        self._setup_grid()
         if had_banded:
             self._banded = make_banded_matvec(self._obs_spec, self.X, self.X, mode=self.mode)
 
@@ -253,9 +296,18 @@ class IterativeGPRegressor:
     def _gram_matvec_raw(self, v_ff):
         """Gram matvec of an ff pair (``(n,)`` or ``(n, r)`` planes) WITHOUT
         the noise shift (the CG applies sigma^2 itself, in float-float),
-        banded where routed.  Mode ff feeds both planes to the kernel and
-        returns the result's ff pair; the other modes read the hi plane and
-        return one tensor."""
+        routed as ``iterative.py:421-432`` of the JAX package: the
+        compensated grid matvec, the grid operator, the banded kernel, K2.
+        Mode ff feeds both planes to the kernel and returns the result's ff
+        pair (the grid operator, on grids KronFF does not take: the split of
+        its float64 product); the other modes read the hi plane and return
+        one tensor."""
+        if self._kron_ff is not None:
+            return self._kron_ff(v_ff)
+        if self._gram_linop is not None:
+            if self.mode == "ff":
+                return ff_split(self._gram_linop @ (v_ff[0].double() + v_ff[1].double()), v_ff[0].dtype)
+            return self._gram_linop @ v_ff[0]
         if self.mode != "ff":
             v_ff = v_ff[0]
         if self._banded is not None:

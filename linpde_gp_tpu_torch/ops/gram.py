@@ -325,7 +325,7 @@ def gram_matvec_plain(spec, X0, X1, v, mode=None):
 def _as_points(X, mode) -> torch.Tensor:
     """``(n, d)`` points in the mode's dtype (``(n,)`` means ``d = 1``): a
     tensor on its device, numpy input on the default device
-    (``config.resolve_device``: the card when one is present)."""
+    (``config.resolve_device``: the card unless the CPU is asked for)."""
     X = X if isinstance(X, torch.Tensor) else torch.tensor(np.asarray(X), device=resolve_device())
     if X.ndim == 1:
         X = X[:, None]

@@ -1,11 +1,14 @@
 """Kernel arithmetic: scaled, summed and zero covariance functions
-(port of ``linpde_gp_tpu/ops/kernels/arithmetic.py``)."""
+(port of ``linpde_gp_tpu/ops/kernels/arithmetic.py``), with their Grams as
+linear operators (``linop``)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ...config import as_f64
+from ...utils.shapes import size
 from .base import CovarianceFunction
 
 
@@ -33,6 +36,9 @@ class ScaledCovarianceFunction(CovarianceFunction):
 
     def matrix(self, X0, X1=None):
         return self._scalar * self._covfunc.matrix(X0, X1)
+
+    def linop(self, X0, X1=None, device=None):
+        return self._covfunc.linop(X0, X1, device) * self._scalar
 
 
 class SumCovarianceFunction(CovarianceFunction):
@@ -70,6 +76,13 @@ class SumCovarianceFunction(CovarianceFunction):
             out = out + s.matrix(X0, X1)
         return out
 
+    def linop(self, X0, X1=None, device=None):
+        """The ``SumOperator`` of the summands' operators, structured where
+        they are (the JAX package gives the dense Gram of every sum)."""
+        from ..linalg.linops import SumOperator
+
+        return SumOperator(*(s.linop(X0, X1, device) for s in self._summands))
+
 
 class ZeroCovarianceFunction(CovarianceFunction):
     """The zero kernel."""
@@ -81,3 +94,12 @@ class ZeroCovarianceFunction(CovarianceFunction):
         return torch.zeros(
             tuple(batch) + self.output_shape_0 + self.output_shape_1, dtype=x0.dtype, device=x0.device
         )
+
+    def linop(self, X0, X1=None, device=None):
+        from ..linalg.linops import Zero as ZeroOp
+
+        X0 = as_f64(X0, device)
+        X1 = X0 if X1 is None else as_f64(X1, device)
+        n0 = size(X0.shape[: X0.ndim - self.input_ndim]) * self.output_size_0
+        n1 = size(X1.shape[: X1.ndim - self.input_ndim]) * self.output_size_1
+        return ZeroOp((n0, n1), torch.float64, X0.device)

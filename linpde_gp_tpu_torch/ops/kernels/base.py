@@ -3,8 +3,8 @@
 Port of ``linpde_gp_tpu/ops/kernels/base.py``: ``CovarianceFunction``
 with broadcasting evaluation, ``pairwise`` and the Gram ``matrix`` with
 the JAX package's flattening contract, scalar arithmetic and sums; and
-``StationaryMixin``.  Structured Grams (``linop``) come with grid mode
-(ROADMAP Queue 1 item 10).
+``StationaryMixin``; ``linop``, the Gram as a linear operator (Kronecker
+structure on tensor-product grids, else dense).
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ...config import as_f64
 from ...utils.shapes import ShapeType, as_shape, size
 
 
@@ -97,6 +98,29 @@ class CovarianceFunction:
         d0, d1 = self.output_ndim_0, self.output_ndim_1
         perm = tuple(range(2, 2 + d0)) + (0,) + tuple(range(2 + d0, 2 + d0 + d1)) + (1,)
         return gram.permute(perm).reshape(self.output_size_0 * n0, self.output_size_1 * n1)
+
+    def linop(self, X0, X1=None, device=None):
+        """The Gram as a float64 linear operator: on ``TensorProductGrid``
+        points with one factor per dimension, for a kernel of the
+        sum-of-products family (``TensorProduct``, ``SumOfProductsKernel``
+        and their scalings), the ``SumOperator`` of one ``Kronecker`` term per
+        spec term of ``ops/kron_ff.kron_linop`` (``tensor_product.py:56-67``,
+        ``product.py:106-138`` of the JAX package); else ``Dense(self.matrix(X0,
+        X1))`` (``base.py:125``).  Numpy points land on ``device`` (``None``:
+        the default device), tensors stay on theirs."""
+        from ...models.domains.grid import grid_factors
+        from ..gram import kernel_term_specs
+        from ..kron_ff import kron_linop
+        from ..linalg.linops import Dense
+
+        f0 = grid_factors(X0)
+        f1 = f0 if X1 is None else grid_factors(X1)
+        if self.input_ndim == 1 and all(f is not None and len(f) == self.input_shape[0] for f in (f0, f1)):
+            spec = kernel_term_specs(self)
+            if spec is not None:
+                return kron_linop(spec, f0, f1, device=device)
+        X0 = as_f64(X0, device)
+        return Dense(self.matrix(X0, None if X1 is None else as_f64(X1, device)))
 
     # -- arithmetic ------------------------------------------------------
     def __add__(self, other):

@@ -1,8 +1,8 @@
 """Tensor-product kernels ``k(x0, x1) = prod_i k_i(x0_i, x1_i)``.
 
-Port of ``linpde_gp_tpu/ops/kernels/tensor_product.py``.  The Kronecker
-``linop`` on tensor-product grids comes with grid mode (ROADMAP Queue 1
-item 10).
+Port of ``linpde_gp_tpu/ops/kernels/tensor_product.py``.  On
+``TensorProductGrid`` points the Gram is the Kronecker product of the
+factors' 1-D Grams (``CovarianceFunction.linop``).
 """
 
 from __future__ import annotations

@@ -3,8 +3,10 @@
 Port of ``linpde_gp_tpu/ops/linalg/linops.py`` (``:32-354``): a small
 tagged hierarchy of operators that densify (``todense``) and apply
 (``@``), with the structured types overriding the hot paths.  Operators
-hold float64 tensors (``config.as_f64``: numpy on the default device), and
-operands of ``@`` go to the operator's device.
+hold float64 tensors (``config.as_f64``: numpy on the default device),
+or a ``Dense`` the dtype it is given (the grid route's float32 Kronecker
+factors in mode plain), and operands of ``@`` go to the operator's device
+and dtype.
 """
 
 from __future__ import annotations
@@ -52,7 +54,9 @@ class LinearOperator:
         return (self.T._matmul(other.T)).T if other.ndim == 2 else self.T._matmul(other)
 
     def _operand(self, x) -> torch.Tensor:
-        return as_f64(x, self.device)
+        if isinstance(x, torch.Tensor):
+            return x.to(device=self.device, dtype=self.dtype)
+        return as_f64(x, self.device).to(self.dtype)
 
     def _matmul(self, x: torch.Tensor) -> torch.Tensor:
         return self.todense() @ x
@@ -95,9 +99,15 @@ class LinearOperator:
 
 
 class Dense(LinearOperator):
-    def __init__(self, array):
-        self.array = as_f64(array)
-        assert self.array.ndim == 2
+    """A stored matrix: float64, or ``dtype`` if given."""
+
+    def __init__(self, array, dtype: torch.dtype | None = None):
+        if dtype is None:
+            self.array = as_f64(array)
+        else:
+            self.array = (array if isinstance(array, torch.Tensor) else as_f64(array)).to(dtype)
+        if self.array.ndim != 2:
+            raise ValueError(f"a dense operator needs a matrix, got shape {tuple(self.array.shape)}")
         super().__init__(self.array.shape, self.array.dtype, self.array.device)
 
     def todense(self):
@@ -108,10 +118,10 @@ class Dense(LinearOperator):
 
     @property
     def T(self):
-        return Dense(self.array.T)
+        return Dense(self.array.T, self.dtype)
 
     def __mul__(self, scalar):
-        return Dense(self.array * scalar)
+        return Dense(self.array * scalar, self.dtype)
 
     __rmul__ = __mul__
 

@@ -7,9 +7,9 @@ diffops ``L0 = sum_a c0_a d^{alpha_a}``, ``L1 = sum_b c1_b d^{beta_b}``,
     (L0 k L1*)(x0, x1)
       = sum_{a,b} c0_a c1_b prod_i d^{alpha_a[i]}_{x0_i} d^{beta_b[i]}_{x1_i} k_i,
 
-a sum of products of closed-form 1-D factors (``univariate.py``).  The
-Kronecker ``linop`` of ``SumOfProductsKernel`` comes with grid mode
-(ROADMAP Queue 1 item 10).
+a sum of products of closed-form 1-D factors (``univariate.py``).  On
+tensor-product grids its Gram is a sum of Kronecker products of the 1-D
+factor Grams (``CovarianceFunction.linop``).
 """
 
 from __future__ import annotations

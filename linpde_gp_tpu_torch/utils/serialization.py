@@ -22,6 +22,6 @@ def save_posterior(path, posterior) -> None:
 
 def load_posterior(path, device=None):
     """Read a posterior written by :func:`save_posterior`, its tensors put
-    on ``device`` (``None``: the default device, ``config.device`` or CUDA
-    when a card is present)."""
+    on ``device`` (``None``: ``config.device``, else the card; without one
+    it raises)."""
     return torch.load(path, map_location=resolve_device(device), weights_only=False)

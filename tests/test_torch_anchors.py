@@ -29,8 +29,12 @@ from linpde_gp_tpu_torch.ops.gram import gram_matrix, kernel_term_specs
 from linpde_gp_tpu_torch.ops.transforms import apply_operator_to_kernel
 from linpde_gp_tpu_torch.specs import to_tuple
 from linpde_gp_tpu_torch.utils.serialization import load_posterior, save_posterior
+from linpde_gp_tpu_torch.config import config
 
 torch.set_num_threads(1)
+# The port runs on the card unless the CPU is asked for: these tests ask for
+# it, and run the kernels' plain versions there.
+config.set(device="cpu")
 
 
 def _heat_priors():

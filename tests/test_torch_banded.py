@@ -27,6 +27,9 @@ from linpde_gp_tpu_torch.ops.gram import gram_matvec, kernel_term_specs
 from linpde_gp_tpu_torch.ops.transforms import apply_operator_to_kernel
 
 torch.set_num_threads(1)
+# The port runs on the card unless the CPU is asked for: these tests ask for
+# it, and run the kernels' plain versions there.
+config.set(device="cpu")
 
 
 @pytest.fixture

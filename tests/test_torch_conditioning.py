@@ -20,8 +20,12 @@ import linpde_gp_tpu_torch as lgt
 from linpde_gp_tpu.ops import diffops as jdiffops
 from linpde_gp_tpu_torch.ops import diffops
 from linpde_gp_tpu_torch.ops.transforms import apply_operator_to_kernel
+from linpde_gp_tpu_torch.config import config
 
 torch.set_num_threads(1)
+# The port runs on the card unless the CPU is asked for: these tests ask for
+# it, and run the kernels' plain versions there.
+config.set(device="cpu")
 
 #: Port vs the JAX package on the same inputs, relative to the values' scale:
 #: the same float64 arithmetic in another order.

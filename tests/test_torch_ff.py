@@ -15,8 +15,12 @@ import torch
 
 from linpde_gp_tpu.ops import ff as jff
 from linpde_gp_tpu_torch.ops import ff
+from linpde_gp_tpu_torch.config import config
 
 torch.set_num_threads(1)
+# The port runs on the card unless the CPU is asked for: these tests ask for
+# it, and run the kernels' plain versions there.
+config.set(device="cpu")
 
 
 def _t(x):

@@ -22,8 +22,12 @@ from linpde_gp_tpu_torch.ops.ff import ff_split
 from linpde_gp_tpu_torch.ops.gram import gram_matrix
 from linpde_gp_tpu_torch.ops.kernels import WendlandCovarianceFunction
 from linpde_gp_tpu_torch.ops.linalg.pcg import pcg_block_ff
+from linpde_gp_tpu_torch.config import config
 
 torch.set_num_threads(1)
+# The port runs on the card unless the CPU is asked for: these tests ask for
+# it, and run the kernels' plain versions there.
+config.set(device="cpu")
 
 N, NQ, RANK, NOISE, TOL = 2000, 32, 128, 1e-3, 1e-9
 

@@ -22,6 +22,7 @@ from linpde_gp_tpu.ops.pallas_gram import (
     pallas_gram,
     pallas_gram_matvec,
 )
+from linpde_gp_tpu_torch.config import config
 from linpde_gp_tpu_torch.ops import _cuda
 from linpde_gp_tpu_torch.ops.gram import (
     _collapse_terms,
@@ -32,6 +33,9 @@ from linpde_gp_tpu_torch.ops.gram import (
 from linpde_gp_tpu_torch.specs import load_specs
 
 torch.set_num_threads(1)
+# The port runs on the card unless the CPU is asked for: these tests ask for
+# it, and run the kernels' plain versions there.
+config.set(device="cpu")
 
 SPECS = load_specs()
 OBS = SPECS["obs"]
@@ -362,7 +366,6 @@ def test_wide_panel_is_the_exact_sum_of_an_ff_pair(shape):
 def test_numpy_input_lands_on_the_default_device(monkeypatch):
     """Numpy points go to ``config.resolve_device()`` (here patched to the
     meta device, which has no route), a tensor stays on its device."""
-    from linpde_gp_tpu_torch.config import config
     from linpde_gp_tpu_torch.ops.gram import _as_points, gram_matrix
 
     monkeypatch.setattr(config, "device", "meta")

@@ -18,10 +18,14 @@ import torch
 import linpde_gp_tpu as lgt
 from linpde_gp_tpu.models.iterative import IterativeGPRegressor as JaxRegressor
 from linpde_gp_tpu.ops import diffops
+from linpde_gp_tpu_torch.config import config
 from linpde_gp_tpu_torch.models.iterative import IterativeGPRegressor
 from linpde_gp_tpu_torch.specs import load_specs
 
 torch.set_num_threads(1)
+# The port runs on the card unless the CPU is asked for: these tests ask for
+# it, and run the kernels' plain versions there.
+config.set(device="cpu")
 
 SPECS = load_specs()
 KW = dict(noise_variance=1e-4, precond_rank=128)
@@ -249,3 +253,27 @@ def test_batch_shaped_queries_match_jax():
     np.testing.assert_allclose(var.numpy(), v_ref, rtol=0, atol=1e-6 * scale)
     # The same queries flattened give the same values.
     np.testing.assert_array_equal(reg.mean(xq.reshape(12, 2)).numpy(), mean.numpy().reshape(12))
+
+
+def test_no_card_and_no_device_raises(monkeypatch):
+    """The port runs on the card unless asked for the CPU: without a card and
+    without ``device=`` or ``config.device``, resolving the device and
+    building a regressor raise, naming how to ask for the CPU."""
+    from linpde_gp_tpu_torch import GaussianProcess
+    from linpde_gp_tpu_torch.config import resolve_device
+    from linpde_gp_tpu_torch.models.functions import Zero
+    from linpde_gp_tpu_torch.ops import diffops as port_diffops
+    from linpde_gp_tpu_torch.ops import kernels
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(config, "device", None)
+    with pytest.raises(RuntimeError, match='config.device = "cpu"'):
+        resolve_device()
+    assert resolve_device("cpu") == torch.device("cpu")
+    cov = 1.0 * kernels.TensorProduct(kernels.Matern((), nu=1.5, lengthscales=2.5), kernels.Matern((), nu=2.5))
+    prior = GaussianProcess(Zero((2,)), cov, device="cpu")
+    X, Y, _ = _problem(n=50)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        IterativeGPRegressor(prior, X, Y, L=port_diffops.HeatOperator((2,), alpha=0.1), mode="f64")
+    reg = IterativeGPRegressor(prior, X, Y, L=port_diffops.HeatOperator((2,), alpha=0.1), mode="f64", device="cpu")
+    assert reg.X.device == torch.device("cpu")

@@ -28,8 +28,12 @@ from linpde_gp_tpu_torch.ops.linalg import (
     solve_triangular,
 )
 from linpde_gp_tpu_torch.ops.linalg.pcg import pcg
+from linpde_gp_tpu_torch.config import config
 
 torch.set_num_threads(1)
+# The port runs on the card unless the CPU is asked for: these tests ask for
+# it, and run the kernels' plain versions there.
+config.set(device="cpu")
 
 
 @pytest.fixture

@@ -13,8 +13,12 @@ import sys
 
 import pytest
 import torch
+from linpde_gp_tpu_torch.config import config
 
 torch.set_num_threads(1)
+# The port runs on the card unless the CPU is asked for: these tests ask for
+# it, and run the kernels' plain versions there.
+config.set(device="cpu")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "linpde_gp_tpu_torch")
@@ -66,6 +70,14 @@ _MODULES = [
     "linpde_gp_tpu_torch.ops.crosscov",
     "linpde_gp_tpu_torch.ops.crosscov.base",
     "linpde_gp_tpu_torch.ops.transforms.functionals",
+    "linpde_gp_tpu_torch.ops.kron_ff",
+    "linpde_gp_tpu_torch.models.domains",
+    "linpde_gp_tpu_torch.models.domains.domain",
+    "linpde_gp_tpu_torch.models.domains.grid",
+    "linpde_gp_tpu_torch.models.functions.arithmetic",
+    "linpde_gp_tpu_torch.models.functions.basic",
+    "linpde_gp_tpu_torch.models.problems",
+    "linpde_gp_tpu_torch.models.problems.pde",
 ]
 
 

@@ -39,8 +39,12 @@ from linpde_gp_tpu_torch.ops.linalg.pcg import (
     pcg_block_ff,
     pcg_ff,
 )
+from linpde_gp_tpu_torch.config import config
 
 torch.set_num_threads(1)
+# The port runs on the card unless the CPU is asked for: these tests ask for
+# it, and run the kernels' plain versions there.
+config.set(device="cpu")
 
 
 def _spd_system(n=512, cond=1e6, seed=0, dtype=np.float32):

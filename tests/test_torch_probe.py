@@ -8,6 +8,11 @@ import pytest
 
 from linpde_gp_tpu_torch import k2_probe
 from linpde_gp_tpu_torch.ops import _cuda
+from linpde_gp_tpu_torch.config import config
+
+# The port runs on the card unless the CPU is asked for: these tests ask for
+# it, and run the kernels' plain versions there.
+config.set(device="cpu")
 
 
 @pytest.mark.parametrize(

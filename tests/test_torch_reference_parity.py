@@ -21,8 +21,12 @@ import linpde_gp_tpu as jlgt
 import linpde_gp_tpu_torch as lgt
 from linpde_gp_tpu.ops import diffops as jdiffops
 from linpde_gp_tpu_torch.ops import diffops
+from linpde_gp_tpu_torch.config import config
 
 torch.set_num_threads(1)
+# The port runs on the card unless the CPU is asked for: these tests ask for
+# it, and run the kernels' plain versions there.
+config.set(device="cpu")
 
 FIXTURES = json.load(open(os.path.join(os.path.dirname(__file__), "fixtures", "reference_parity.json")))
 NOISE = FIXTURES["noise"]

@@ -13,8 +13,12 @@ import torch
 
 from make_torch_spec_fixtures import heat_bench_specs
 from linpde_gp_tpu_torch.specs import load_specs, save_specs, spec_diagonal, to_tuple
+from linpde_gp_tpu_torch.config import config
 
 torch.set_num_threads(1)
+# The port runs on the card unless the CPU is asked for: these tests ask for
+# it, and run the kernels' plain versions there.
+config.set(device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -26,8 +26,12 @@ from linpde_gp_tpu_torch.ops import kernels as port_kernels
 from linpde_gp_tpu_torch.ops import transforms as port_transforms
 from linpde_gp_tpu_torch.ops.gram import kernel_term_specs
 from linpde_gp_tpu_torch.ops.kernels.wendland import wendland_polynomial
+from linpde_gp_tpu_torch.config import config
 
 torch.set_num_threads(1)
+# The port runs on the card unless the CPU is asked for: these tests ask for
+# it, and run the kernels' plain versions there.
+config.set(device="cpu")
 
 JAX = SimpleNamespace(
     K=lgt.ops.kernels, D=lgt.ops.diffops, T=lgt.ops.transforms, GP=lgt.GaussianProcess, Zero=lgt.functions.Zero

@@ -24,8 +24,12 @@ from linpde_gp_tpu_torch.ops.diffops import HeatOperator
 from linpde_gp_tpu_torch.ops.gram import gram_matrix
 from linpde_gp_tpu_torch.ops.transforms import apply_operator_to_kernel
 from linpde_gp_tpu_torch.specs import load_specs
+from linpde_gp_tpu_torch.config import config
 
 torch.set_num_threads(1)
+# The port runs on the card unless the CPU is asked for: these tests ask for
+# it, and run the kernels' plain versions there.
+config.set(device="cpu")
 
 KW = dict(noise_variance=1e-4, maxiter=3000, precond_rank=128)
 NQ = 48
