@@ -108,39 +108,73 @@ Phases, each printed as it finishes:
                 var and cov.matrix to 1e-9; again with
                 config.solve_refinement (a float32 factor refined in f64),
                 the mean and cov.matrix to 1e-6.
-7. grid     - grid mode, in modes ff and f64, the launch counts set to 0
+7. mean     - a non-zero prior mean on the anchored heat IBVP of the main
+              phase (N = 100,000, the same data, anchors, noise and rank
+              4,096), in modes ff and f64, the launch counts set to 0 before
+              each run and read just after its work (build, solve, mean):
+              the prior mean m(t, x) = exp(-0.3 t) sin(pi (x + 1) / 2), a
+              torch ``LambdaFunction``, so that ``L m`` is ``H m`` by nested
+              ``torch.func.jvp`` at the 1e5 points on the card.  Checked:
+              finite weights, the solver's relres, the joint true relres of
+              the 2 x 2 system on the residual data (f64 plain versions) <=
+              1e-3, RMSE vs u* at 8,192 queries <= 4e-4, ``H m`` vs its
+              closed form (-0.3 + alpha pi^2 / 4) m within 1e-12 of max |H m|
+              (f64), the run's own K1 and K2 calls (the Nystrom blocks,
+              ``W``, ``A11``, the mean's anchor term; the mean's K2) against
+              their plain versions as in the grid phase; then, outside the
+              counted window, in f64 at CG tol 1e-10 the mean against a
+              zero-mean regressor on the shifted data (``Y - H m(X)``, ``Y1
+              - m(X1)``) plus m(xq) within 1e-6 of max |mean|, and the dense
+              engine on the same problem at N = 4,096 with the mean against
+              the regressor with the mean (f64, tol 1e-10) within 1e-6 of max
+              |mean|.  Logged: seconds of ``H m`` at 1e5 points (the
+              process's first nested jvp, and again warm), the build, the
+              solve and the mean.
+8. symbolic - three small symbolic routes on CUDA tensors, each held to the
+              same call on the CPU within 1e-12 and checked to leave its
+              result on the card: the radial-Matérn 2-D Poisson dense
+              posterior (mean and std; observation noise 1e-8), an ``AutodiffTransformedKernel``
+              Gram (ExpQuad with the autodiff route forced, off the
+              diagonal) and a general-nu Matérn (nu = 1.2) Gram through the
+              host Bessel round trip.
+9. grid     - grid mode, in modes ff and f64, the launch counts set to 0
               before each run and read just after its work: the reference's
               tensor-grid heat configuration (``experiments/grid_mode_tpu.py``)
               built through ``lgt.problems.HeatEquationDirichletProblem``, a
               (500 x 200) ``TensorProductGrid`` (N = 100,000), 96 + 2 x 48
               anchors from the problem's solution (noise 1e-5), noise 1e-3
               diag(H k H*), rank 2,048, tol 1e-5, the mean at 8,192 queries,
-              ``var`` at 256.  The CG matvec is ``KronFFMatvec`` (ff) or the
-              float64 Kronecker operator (f64): K1 and K2 at r = 1 must
-              launch, the multi-column and banded routes must not.  Checked:
-              finite weights, relres, the joint true relres (f64, A22 by K2),
-              RMSE vs u* <= 4e-4, the problem's solution vs u*, 0 < var <=
-              prior var, the Kronecker operator vs K2 on the flattened grid
-              (f64, 1e-12 of sum_j |k_ij v_j| per row), KronFFMatvec vs the
-              f64 operator at r = 1 and 256 (5e-5 ||v||); var is at most
-              3e-5 of the prior variance, so f64 also solves it at CG tols
-              1e-9 and 1e-10 (the reference, agreeing within 1e-3 of var per
-              query) and ff at 1e-9 (within 1e-3 of var per query of it);
-              the tol-1e-5 variances are logged against it, not gated.
-              Logged: build, solve, iterations, ms per iteration, mean and
-              var seconds, and the structured matvecs' CUDA-event ms at r =
-              1 and 256 (ff, also at chunks 64 and 16, f64 and plain
-              float32, with each one's error against the f64 operator and
-              its bound), beside K2's at 1e5^2 from the timing phase.
+              ``var`` at 256.  The CG matvec is the float64 Kronecker
+              operator (in mode ff its product split into the CG's ff pair):
+              K1 and K2 at r = 1 must launch, the multi-column and banded
+              routes must not.  Checked: finite weights, relres, the joint
+              true relres (f64, A22 by K2), RMSE vs u* <= 4e-4, the
+              problem's solution vs u*, 0 < var <= prior var, the Kronecker
+              operator vs K2 on the flattened grid (f64, 1e-12 of sum_j
+              |k_ij v_j| per row), the JAX package's ff matvec KronFFMatvec
+              vs the f64 operator at r = 1 and 256 (5e-5 ||v||); var is at
+              most 3e-5 of the prior variance, so f64 also solves it at CG
+              tols 1e-9 and 1e-10 (the reference, agreeing within 1e-3 of
+              var per query) and ff at 1e-9, which must agree with it within
+              1e-3 of var per query and within ``VAR_REL_BOUND`` (1e-4) of
+              max var, a bound its control (the same CG on the float32
+              Kronecker operator) must miss; the tol-1e-5 variances are
+              logged against it, not gated.  Logged: build, solve,
+              iterations, ms per iteration, mean and var seconds, and the
+              structured matvecs' CUDA-event ms at r = 1 and 256 (f64, plain
+              float32 and KronFFMatvec, with each one's error against the
+              f64 operator and its bound), beside K2's at 1e5^2 from the
+              timing phase.
 
 The line before the last is a JSON object with one entry per kernel: its
 ff time at the main path's shape beside its plain version's, its bound
 (``bound_ms``: the larger of the operations the work needs, from the
 generator's per-pair counts, over the H100 SXM's peak rate of their
 pipe, and its bytes over the memory rate; :data:`PEAK`) and its launches
-in the main, dense and grid phases (``launches_by_path``: the main phase's
-runs, the dense engine's own work and the grid path's runs, apart).  The last line is ``{"ok": true, "device": {...}}``,
-printed only if every phase passed.  The script never imports JAX.
+in the main, dense, mean and grid phases (``launches_by_path``: the main
+phase's runs, the dense engine's own work, the mean path's runs and the
+grid path's runs, apart).  The last line is ``{"ok": true, "device":
+{...}}``, printed only if every phase passed.  The script never imports JAX.
 """
 
 from __future__ import annotations
@@ -155,7 +189,7 @@ import traceback
 
 import numpy as np
 
-PHASES = ("device", "build", "kernels", "timing", "main", "dense", "grid")
+PHASES = ("device", "build", "kernels", "timing", "main", "dense", "mean", "symbolic", "grid")
 # name -> (TPU kernel(s) it replaces, label, source)
 KERNELS = {
     "gram": ("linpde_gp_tpu/ops/pallas_gram.py:277", "K1", "linpde_gp_tpu_torch/csrc/gram.cuh"),
@@ -218,14 +252,6 @@ ORACLE_VAR_BOUND = {"plain": 1e-3, "ff": 1e-5, "f64": 1e-7}
 #: The ff variance at this CG tol must agree with the f64 reference
 #: (REF_TOLS[1]) within REF_AGREE of var per query, the bound f64 meets.
 FF_VAR_TOL = 1e-9
-#: The grid cell's ff variance at FF_VAR_TOL against the f64 reference,
-#: relative to max var.  KronFF's float32 sums inside each chunk leave
-#: ~7e-6 ||v|| in its matvec, and the grid's variance sits ~3e4 times below
-#: the prior variance it is subtracted from.  Set from the readings on an
-#: H100 80GB HBM3 at 700 W: the sound run reads 1.62e-4, its control
-#: (:func:`_uncompensated_variance`) 7.23e-4; the bound sits near their
-#: geometric mean.
-GRID_FF_VAR_BOUND = 3e-4
 #: The dense engine's PDE points: the largest dense size of the JAX
 #: package's scaling sweep (experiments/scaling_tpu.py:19).
 DENSE_N = 32768
@@ -1733,21 +1759,304 @@ def phase_dense(n, nq) -> dict:
     return total
 
 
-def grid_spans() -> "Spans":
+#: The mean phase's prior mean: m(t, x) = exp(-MEAN_DECAY t) sin(pi (x + 1)
+#: / 2), the IBVP's solution with the wrong decay rate (u* decays at 0.1 pi^2
+#: / 4 = 0.247); under H = d/dt - 0.1 d^2/dx^2 it is (0.1 pi^2 / 4 -
+#: MEAN_DECAY) m.
+MEAN_DECAY = 0.3
+#: The dense engine's size in the mean phase, held to the regressor there.
+MEAN_DENSE_N = 4096
+
+
+def prior_mean_fn(x):
+    """The mean phase's prior mean on torch tensors of shape (..., 2)."""
+    import torch
+
+    return torch.exp(-MEAN_DECAY * x[..., 0]) * torch.sin(torch.pi * (x[..., 1] + 1.0) / 2.0)
+
+
+def heat_mean_closed_form(x):
+    """``H m`` in closed form."""
+    import torch
+
+    return (0.1 * torch.pi**2 / 4.0 - MEAN_DECAY) * prior_mean_fn(x)
+
+
+def mean_prior(device="cuda"):
+    """The heat prior with the mean :func:`prior_mean_fn` (a torch
+    ``LambdaFunction``) on ``device``, and H."""
+    from linpde_gp_tpu_torch import GaussianProcess
+    from linpde_gp_tpu_torch.models.functions import LambdaFunction
+
+    prior, H = heat_problem(device)
+    return GaussianProcess(LambdaFunction(prior_mean_fn, (2,)), prior.cov, device=device), H
+
+
+def run_mean_path(mode, n, nq, rank, *, device="cuda", n_ic=96, n_bc=48, tol=1e-5, maxiter=512, noise_rel=1e-3,
+                  anchor_noise=1e-5):
+    """The anchored heat IBVP of :func:`run_ibvp_path` with the prior mean
+    :func:`prior_mean_fn`: ``IterativeGPRegressor(prior, X, 0, L=H,
+    anchor_X=..., anchor_Y=...)``, whose CG solves for the residual data
+    ``0 - H m(X)`` and ``Y1 - m(X1)``.  The launch counts are read just
+    after the path's work (build, solve, mean), before its checks: finite
+    weights, the solver's relres, the joint true relres of the 2 x 2 system
+    on the residual data (f64 plain versions), the RMSE against u*, ``H m``
+    on the card against its closed form, and on the card the run's K1 and
+    K2 calls against their plain versions.  Returns the measurements and,
+    under ``"reg"``, the regressor."""
+    import torch
+
+    from linpde_gp_tpu_torch.models.iterative import IterativeGPRegressor
+    from linpde_gp_tpu_torch.ops import _cuda
+    from linpde_gp_tpu_torch.ops.gram import gram_matvec_plain, gram_plain, kernel_term_specs
+    from linpde_gp_tpu_torch.specs import spec_diagonal
+
+    tag = f"mean[{mode}]"
+    prior, H = mean_prior(device)
+    X, Xq = ibvp_data(n, nq)
+    Xa, Ya = ibvp_anchors(n_ic, n_bc)
+    noise = noise_rel * spec_diagonal(heat_specs()["obs"])
+    on_card = torch.device(device).type == "cuda"
+    # The first nested jvp in a process costs seconds on the card (6.5 s in
+    # a solve, PERF.md), once: it is timed here, apart from the solve.
+    sync()
+    t0 = time.perf_counter()
+    H(prior.mean)(torch.from_numpy(X.astype(np.float64)).to(device))
+    sync()
+    hm_first_s = time.perf_counter() - t0
+    with grid_spans(_keep_mean_k2) as spans:
+        _cuda.reset_launches()
+        reg, w, mu, times = _solve_and_mean(lambda: IterativeGPRegressor(
+            prior, torch.from_numpy(X), torch.zeros(n), L=H, noise_variance=noise, tol=tol, maxiter=maxiter,
+            precond_rank=rank, mode=mode, device=device, anchor_X=Xa, anchor_Y=Ya, anchor_noise=anchor_noise,
+        ), Xq)
+        launches = dict(_cuda.launches)
+    out = dict(mode=mode, n=n, nq=nq, n_anchor=int(Xa.shape[0]), rank=rank, noise=noise, anchor_noise=anchor_noise,
+               hm_first_s=hm_first_s, **times, launches=launches,
+               spans={name: dict(calls=spans.calls[name], seconds=spans.seconds[name], longest=spans.longest[name])
+                      for name in spans.calls})
+    if on_card:
+        out["kernel_check"] = _check_grid_kernels(spans, tag, min_k1=3)
+    # H m at the points as the regressor holds them, on the card, against its closed form.
+    X64 = reg.X.double()
+    sync()
+    t0 = time.perf_counter()
+    hm = reg._mean_obs(X64)
+    sync()
+    out["hm_s"] = time.perf_counter() - t0
+    hm_ref = heat_mean_closed_form(X64)
+    e_hm = ((hm - hm_ref).abs().max() / hm_ref.abs().max()).item()
+    check(type(reg._mean_obs).__name__ == "DiffopFunction" and hm.device == X64.device and e_hm <= 1e-12,
+          f"{tag}: H m by nested jvp at {n} points on {hm.device} vs its closed form: {e_hm:.3e} of max |H m| "
+          f"<= 1e-12; {out['hm_s']:.3f} s")
+    aw = reg.anchor_weights
+    iters, relres = reg.solve_info
+    check(bool(torch.isfinite(w).all()) and bool(torch.isfinite(aw).all()), f"{tag}: weights finite")
+    check(relres <= 100 * tol, f"{tag}: solver relres {relres:.3e} <= {100 * tol:g}")
+    # The joint residual of [[A11, W^T], [W, A22]] [aw; w] = [Y1 - m(X1); Y - H m(X)].
+    a = reg._anchors
+    X1 = a["X1"].double()
+    w64, aw64 = w.double(), aw.double()
+    y1 = a["Y1"].double() - prior_mean_fn(X1)
+    y2 = reg.Y.double() - hm_ref
+    sk, tk = kernel_term_specs(prior.cov)
+    sw, tw = kernel_term_specs(a["k_Lk"])
+    A11 = sk * gram_plain(tk, X1, X1, "f64") + anchor_noise * torch.eye(X1.shape[0], dtype=torch.float64,
+                                                                          device=X1.device)
+    W = sw * gram_plain(tw, X64, X1, "f64")
+    r1 = A11 @ aw64 + W.T @ w64 - y1
+    r2 = W @ aw64 + gram_matvec_plain(reg._obs_spec, X64, X64, w64, "f64") + noise * w64 - y2
+    joint = (torch.sqrt(r1.square().sum() + r2.square().sum()) /
+             torch.sqrt(y1.square().sum() + y2.square().sum())).item()
+    check(joint <= 1e-3, f"{tag}: joint true relres of the 2x2 system on the residual data (f64 plain versions) "
+          f"{joint:.3e} <= 1e-3")
+    err = mu.double().cpu().numpy() - u_star(Xq)
+    rmse, max_err = float(np.sqrt(np.mean(err**2))), float(np.max(np.abs(err)))
+    check(bool(np.isfinite(err).all()) and rmse <= 4e-4,
+          f"{tag}: RMSE vs u* at {nq} queries {rmse:.3e} <= 4e-4; max error {max_err:.3e}")
+    out.update(iterations=iters, relres=relres, joint_true_relres=joint, rmse=rmse, max_err=max_err, hm_rel_err=e_hm,
+               solve_ms_per_iteration=1e3 * times["solve_s"] / max(iters, 1))
+    log(f"mean[{mode}] " + json.dumps(out))
+    out["reg"] = reg
+    return out
+
+
+def check_mean_identities(reg, n, nq, *, it_tol=1e-10, maxiter=4000, n_dense=MEAN_DENSE_N, dense_q=1024):
+    """Outside the counted window, in f64: (1) the regressor with the mean
+    ``reg`` (re-solved at CG tol ``it_tol``) against a zero-mean regressor on
+    the shifted data ``0 - H m(X)`` and ``Y1 - m(X1)``, plus ``m(xq)``, at
+    ``nq`` queries; (2) the dense engine with the mean at ``n_dense`` PDE
+    points and the anchors against the regressor with the mean on the same
+    data (tol ``it_tol``) at ``dense_q`` queries.  Each within 1e-6 of max
+    |mean|.  Returns the measurements."""
+    import torch
+
+    import linpde_gp_tpu_torch as lgt
+    from linpde_gp_tpu_torch.models.iterative import IterativeGPRegressor
+
+    device = reg.device
+    prior, H = mean_prior(device)
+    zero, _ = heat_problem(device)
+    X, Xq = ibvp_data(n, nq)
+    a = reg._anchors
+    Xa, Ya = a["X1"].double(), a["Y1"].double()
+    kw = dict(L=H, noise_variance=reg.noise_variance, tol=it_tol, maxiter=maxiter, precond_rank=reg.precond_rank,
+              mode="f64", device=device, anchor_X=Xa, anchor_noise=a["noise"])
+    out = {}
+    t0 = time.perf_counter()
+    reg.tol, reg.maxiter = it_tol, maxiter
+    mu = reg.refit(reg.Y).mean(torch.from_numpy(Xq)).double()
+    X64 = torch.from_numpy(X.astype(np.float64)).to(device)
+    shifted = IterativeGPRegressor(zero, X64, -heat_mean_closed_form(X64), anchor_Y=Ya - prior_mean_fn(Xa), **kw)
+    xq64 = torch.from_numpy(Xq.astype(np.float64)).to(device)
+    want = shifted.mean(xq64) + prior_mean_fn(xq64)
+    sync()
+    e = ((mu - want).abs().max() / want.abs().max()).item()
+    out["shifted"] = dict(seconds=time.perf_counter() - t0, solve=reg.solve_info, shifted_solve=shifted.solve_info,
+                          rel_err=e)
+    check(e <= 1e-6, f"mean[f64] at tol {it_tol:g} vs a zero-mean regressor on the shifted data plus m: {e:.3e} of "
+          f"max |mean| <= 1e-6 (solves {reg.solve_info}, {shifted.solve_info})")
+    del shifted
+    # The dense engine with the mean against the regressor with the mean.
+    t0 = time.perf_counter()
+    Xd = X[:n_dense]
+    m1 = Xa.shape[0]
+    post = prior.condition_on_observations(Ya, X=Xa, b=lgt.Normal(np.zeros(m1), a["noise"] * np.ones(m1)))
+    post = post.condition_on_observations(np.zeros(n_dense), X=Xd, L=H,
+                                          b=lgt.Normal(np.zeros(n_dense), reg.noise_variance * np.ones(n_dense)))
+    mu_dense = post.mean(Xq[:dense_q]).double()
+    sync()
+    dense_s = time.perf_counter() - t0
+    small = IterativeGPRegressor(prior, Xd, np.zeros(n_dense), anchor_Y=Ya, **dict(kw, precond_rank=512))
+    mu_it = small.mean(torch.from_numpy(Xq[:dense_q])).double()
+    e = ((mu_dense - mu_it).abs().max() / mu_it.abs().max()).item()
+    out["dense"] = dict(n=n_dense, nq=dense_q, seconds=dense_s, solve=small.solve_info, rel_err=e)
+    check(e <= 1e-6, f"mean: the dense engine with the mean at N = {n_dense} vs the regressor with the mean (f64, tol "
+          f"{it_tol:g}): {e:.3e} of max |mean| <= 1e-6 (CG {small.solve_info})")
+    log("mean[identities] " + json.dumps(out))
+    return out
+
+
+def phase_mean(n, nq) -> dict:
+    """The mean path (:func:`run_mean_path`) in modes ff and f64, each with
+    the launch counts set to 0 before it and read just after its work: K1
+    and K2 at r = 1 must launch, the multi-column and banded routes must
+    not.  Then :func:`check_mean_identities` on the f64 regressor.  Returns
+    the launches summed over the two runs."""
+    total = {name: 0 for name in KERNELS}
+    regs = {}
+    for mode in ("ff", "f64"):
+        res = run_mean_path(mode, n, nq, IBVP_RANK)
+        per = res["launches"]
+        for name in total:
+            total[name] += per[name]
+        log(f"mean[{mode}] launches {per}")
+        check(per["gram"] > 0 and per["gram_matvec"] > 0 and per["gram_matvec_wide"] == 0
+              and per["banded_matvec"] == per["banded_matvec_wide"] == 0,
+              f"mean[{mode}] launched K1 and K2 at r = 1 and no multi-column or banded route: {per}")
+        regs[mode] = res["reg"]
+    del regs["ff"]
+    check_mean_identities(regs["f64"], n, nq)
+    return total
+
+
+def _radial_poisson(device):
+    """The radial-Matérn 2-D Poisson dense posterior of
+    ``tests/test_radial_matern.py:96`` on ``device``, with observation noise
+    1e-8 (the reference-parity fixtures'): its mean and std at 64 seeded
+    queries.  Noiseless, boundary points 1.4e-6 apart at the corners make
+    the std rounding-sensitive: permuting the points moves it by 2e-5 of
+    its max on the CPU, where with the noise it moves by 2e-13."""
+    import linpde_gp_tpu_torch as lgt
+
+    bvp = lgt.problems.PoissonEquationDirichletProblem(
+        domain=lgt.domains.Box([[-1.0, 1.0], [-1.0, 1.0]]), rhs=lgt.functions.Constant((2,), 2.0),
+        boundary_values=lgt.functions.Constant((2,), 0.0),
+    )
+    post = lgt.GaussianProcess(lgt.functions.Zero((2,)), 2.0**2 * lgt.kernels.Matern((2,), nu=2.5, lengthscales=1.0),
+                               device=device)
+    for bc in bvp.boundary_conditions:
+        X_bc = np.asarray(bc.boundary.uniform_grid(6, inset=1e-6)).reshape(-1, 2)
+        m = X_bc.shape[0]
+        post = post.condition_on_observations(np.zeros(m), X=X_bc, b=lgt.Normal(np.zeros(m), 1e-8 * np.ones(m)))
+    X_pde = np.asarray(bvp.domain.uniform_grid((7, 7))).reshape(-1, 2)
+    post = post.condition_on_observations(np.full(49, 2.0), X=X_pde, L=bvp.pde.diffop,
+                                          b=lgt.Normal(np.zeros(49), 1e-8 * np.ones(49)))
+    xq = np.random.default_rng(5).uniform(-1.0, 1.0, (64, 2))
+    return post.mean(xq), post.std(xq)
+
+
+def _autodiff_gram(device):
+    """``Laplacian k Laplacian*`` of a 2-D ExpQuad with the autodiff route
+    forced: its Gram at 300 x 200 seeded points (no pair on the diagonal)."""
+    import torch
+
+    import linpde_gp_tpu_torch as lgt
+    from linpde_gp_tpu_torch.ops.gram import gram_matrix
+    from linpde_gp_tpu_torch.ops.transforms import AutodiffTransformedKernel, as_coefficients
+
+    c = as_coefficients(lgt.diffops.Laplacian((2,)))
+    kk = AutodiffTransformedKernel(lgt.kernels.ExpQuad((2,), lengthscales=np.array([0.7, 1.3])), c, c)
+    rng = np.random.default_rng(6)
+    X0, X1 = (torch.from_numpy(rng.uniform(-1.0, 1.0, (m, 2))).to(device) for m in (300, 200))
+    return (gram_matrix(kk, X0, X1, "f64"),)
+
+
+def _general_nu_gram(device):
+    """The Gram of a 2-D Matérn nu = 1.2 (the host Bessel round trip) at 300
+    x 200 seeded points."""
+    import torch
+
+    import linpde_gp_tpu_torch as lgt
+    from linpde_gp_tpu_torch.ops.gram import gram_matrix
+
+    rng = np.random.default_rng(8)
+    X0, X1 = (torch.from_numpy(rng.uniform(-1.0, 1.0, (m, 2))).to(device) for m in (300, 200))
+    return (gram_matrix(lgt.kernels.Matern((2,), nu=1.2, lengthscales=0.8), X0, X1, "f64"),)
+
+
+def phase_symbolic(device="cuda") -> dict:
+    """The symbolic routes without a kernel spec on CUDA tensors, each held
+    to the same call on the CPU within 1e-12 of max |value| and checked to
+    leave its results on the card."""
+    out = {}
+    for name, fn in (("radial poisson", _radial_poisson), ("autodiff gram", _autodiff_gram),
+                     ("general nu gram", _general_nu_gram)):
+        t0 = time.perf_counter()
+        got = fn(device)
+        sync()
+        secs = time.perf_counter() - t0
+        ref = fn("cpu")
+        on_card = all(g.device.type == "cuda" for g in got)
+        err = max(((g.cpu() - r).abs().max() / r.abs().max()).item() for g, r in zip(got, ref))
+        out[name] = dict(seconds=secs, rel_err=err, devices=sorted({str(g.device) for g in got}))
+        check(on_card and err <= 1e-12, f"symbolic[{name}]: results on {out[name]['devices']}, vs the same call on "
+              f"the CPU {err:.3e} of max |value| <= 1e-12; {secs:.2f} s")
+    log("symbolic " + json.dumps(out))
+    return out
+
+
+def grid_spans(keep_k2=None) -> "Spans":
     """The grid path's kernel calls, each kept: K1 from the regressor (the
     Nystrom blocks) and from ``gram_matrix`` (the anchors' Grams, ``W``,
     ``var``'s ``kxX``), each as :func:`_k1_sample`; K2 from the regressor
-    (the mean), whole."""
+    (the mean), whole, or as ``keep_k2(args, out)`` picks."""
     from linpde_gp_tpu_torch.models import iterative as iterative_module
     from linpde_gp_tpu_torch.ops import gram as gram_module
 
     return Spans({"k1_blocks": (iterative_module, "gram"), "k1_gram_matrix": (gram_module, "gram"),
                   "k2_calls": (iterative_module, "gram_matvec")},
                  keep={"k1_blocks": _k1_sample, "k1_gram_matrix": _k1_sample,
-                       "k2_calls": lambda args, out: (args, out)})
+                       "k2_calls": keep_k2 or (lambda args, out: (args, out))})
 
 
-def _check_grid_kernels(spans, tag) -> dict:
+def _keep_mean_k2(args, out):
+    """Of K2's calls from the regressor, the mean's (queries x points) whole;
+    the CG's (points x points) as ``None``."""
+    return (args, out) if args[1].shape[0] != args[2].shape[0] else None
+
+
+def _check_grid_kernels(spans, tag, min_k1=4) -> dict:
     """The grid path's K1 and K2 launches against their plain versions on
     the run's own operands.  K1: per spec and mode the largest call (the
     Nystrom block, ``W``, ``kxX``, the anchors' Grams) launched again (CUDA
@@ -1758,7 +2067,9 @@ def _check_grid_kernels(spans, tag) -> dict:
     K2 (the mean's calls): the f64 result within 1e-12 of its row's sum_j
     |k_ij v_j|; ff's rounded row by row from the f64 product and its ff pair
     within ``ROW_BOUND`` eps of that sum, the bounds of the kernels phase.
-    The run must call no plain version on a CUDA tensor."""
+    K2 calls kept as ``None`` (the CG's) are not checked.  ``min_k1``: the
+    (spec, mode) pairs the run must have launched K1 on.  The run must call
+    no plain version on a CUDA tensor."""
     import torch
 
     from linpde_gp_tpu_torch.ops.gram import gram, gram_matvec_plain, gram_plain
@@ -1784,10 +2095,11 @@ def _check_grid_kernels(spans, tag) -> dict:
         check(err <= bound, f"{what} vs plain f64 on the same points: {err:.3e} of max |k| <= {bound:g}; "
               f"{k1_ms:.3f} ms (CUDA events, mean of 3), plain {plain_ms:.1f} ms")
         k1.append(dict(shape=list(shape), mode=mode, terms=len(terms), ms=k1_ms, plain_ms=plain_ms, rel_err=err))
-    check(len(k1) >= 4, f"{tag}: K1 checked on {len(k1)} (spec, mode) pairs: Nystrom, W, kxX, the anchors")
+    check(len(k1) >= min_k1, f"{tag}: K1 checked on {len(k1)} >= {min_k1} (spec, mode) pairs: Nystrom, W, "
+          f"{'kxX, ' if min_k1 > 3 else ''}the anchors")
     eps32 = torch.finfo(torch.float32).eps
     k2 = []
-    for (spec, x, pts, v, mode), res in spans.kept["k2_calls"]:
+    for (spec, x, pts, v, mode), res in filter(None, spans.kept["k2_calls"]):
         scale, terms = spec
         v64 = v[0].double() + v[1].double() if isinstance(v, tuple) else v.double()
         x64, pts64 = x.double(), pts.double()
@@ -1832,20 +2144,22 @@ def grid_problem(nt: int, nx: int, device="cuda"):
 
 
 def _structured_matvecs(reg, reps):
-    """The grid path's CG matvecs on ``reg``'s card and their CUDA-event
-    milliseconds at r = 1 and 256 (mean of ``reps``): the compensated
-    ``KronFFMatvec`` (mode ff), the float64 and the plain float32
-    Kronecker operators; ``||err|| / ||v||`` of each
-    against the float64 one."""
+    """The grid path's structured matvecs on ``reg``'s card and their
+    CUDA-event milliseconds at r = 1 and 256 (mean of ``reps``): the float64
+    Kronecker operator (the CG's in modes f64 and ff), the plain float32 one
+    and, in mode ff, the compensated ``KronFFMatvec`` (the JAX package's ff
+    route, which the regressor no longer takes); ``||err|| / ||v||`` of
+    each against the float64 one."""
     import torch
 
     from linpde_gp_tpu_torch.ops.ff import ff_split
-    from linpde_gp_tpu_torch.ops.kron_ff import kron_linop
+    from linpde_gp_tpu_torch.ops.kron_ff import KronFFMatvec, kron_linop
 
     factors = [g.astype(np.float64) for g in reg._grid_factors]
     shape = tuple(len(g) for g in factors)
     f64 = kron_linop(reg._obs_spec, factors, device=reg.device)
     f32 = kron_linop(reg._obs_spec, factors, dtype=torch.float32, device=reg.device)
+    kron_ff = KronFFMatvec(reg._obs_spec, factors, device=reg.device) if reg.mode == "ff" else None
     gen = torch.Generator(device=reg.device).manual_seed(11)
     out = {}
     for r in (1, 256):
@@ -1853,8 +2167,8 @@ def _structured_matvecs(reg, reps):
         ref = f64 @ v
         v_ff, v32 = ff_split(v), v.float()
         routes = {"f64": lambda: f64 @ v, "plain": lambda: f32 @ v32}
-        if reg._kron_ff is not None:
-            routes["ff"] = lambda: reg._kron_ff(v_ff)
+        if kron_ff is not None:
+            routes["ff"] = lambda: kron_ff(v_ff)
         for name, fn in routes.items():
             fn()  # warm-up
             ms, y = timed(fn, reps)
@@ -1883,8 +2197,8 @@ def run_grid_path(mode, *, nt=500, nx=200, nq=8192, rank=2048, device="cuda", n_
     """Grid mode: ``experiments/grid_mode_tpu.py``'s anchored heat problem on
     an (nt x nx) ``TensorProductGrid`` through ``IterativeGPRegressor(prior,
     grid, 0, L=H, anchor_X=..., anchor_Y=...)``: the CG's matvec is the
-    sum-of-Kronecker one (``KronFFMatvec`` in mode ff, the float64 Kronecker
-    operator in f64); the Nystrom blocks, the anchors, the mean and ``var``'s
+    float64 Kronecker operator (in mode ff split into the CG's ff pair); the
+    Nystrom blocks, the anchors, the mean and ``var``'s
     ``kxX`` are K1 and K2 at the flattened points.  The launch counts are
     read just after the path's work (build, solve, mean, ``var`` at
     ``var_queries`` queries in one block), before its checks: finite
@@ -1935,9 +2249,8 @@ def run_grid_path(mode, *, nt=500, nx=200, nq=8192, rank=2048, device="cuda", n_
     iters, relres = reg.solve_info
     out.update(iterations=iters, relres=relres, solve_ms_per_iteration=1e3 * times["solve_s"] / max(iters, 1),
                var_ms_per_iteration=1e3 * out["var_s"] / max(out["var_iterations"], 1))
-    routed = reg._kron_ff is not None if mode == "ff" else reg._gram_linop is not None and reg._kron_ff is None
-    check(routed and reg._banded is None, f"{tag}: CG routed through the "
-          f"{'compensated sum-of-Kronecker matvec' if mode == 'ff' else 'float64 Kronecker operator'}")
+    check(reg._gram_linop is not None and reg._gram_linop.dtype == torch.float64 and reg._banded is None,
+          f"{tag}: CG routed through the float64 Kronecker operator{' (its ff split)' if mode == 'ff' else ''}")
     aw = reg.anchor_weights
     check(bool(torch.isfinite(w).all()) and bool(torch.isfinite(aw).all()), f"{tag}: weights finite")
     check(relres <= 100 * tol, f"{tag}: solver relres {relres:.3e} <= {100 * tol:g}")
@@ -2009,23 +2322,31 @@ def run_grid_path(mode, *, nt=500, nx=200, nq=8192, rank=2048, device="cuda", n_
 
 def _uncompensated_variance(reg, xq, block_size):
     """The control of the grid's ff variance gate: ``reg.var`` at ``xq`` in
-    one block at CG tol :data:`FF_VAR_TOL` with the CG's matvec swapped for
-    the float32 Kronecker operator on the hi plane (mode plain's, the JAX
-    package's ``compensated=False``: no ff tables, no chunks).  Returns the
-    measurements and the variance (float64, host)."""
+    one block at CG tol :data:`FF_VAR_TOL` with the CG's operator swapped for
+    the float32 Kronecker operator (mode plain's, the JAX package's
+    ``compensated=False``: no ff tables, no chunks), applied to the CG's
+    vector rounded to float32.  Returns the measurements and the variance
+    (float64, host)."""
     import torch
 
     from linpde_gp_tpu_torch.ops.kron_ff import kron_linop
 
+    class Float32Operator:
+        def __init__(self, op):
+            self.op = op
+
+        def __matmul__(self, v):
+            return (self.op @ v.float()).double()
+
     f32 = kron_linop(reg._obs_spec, reg._grid_factors, dtype=torch.float32, device=reg.device)
-    saved, reg._kron_ff = reg._kron_ff, lambda v: (f32 @ v[0], torch.zeros_like(v[0]))
+    saved, reg._gram_linop = reg._gram_linop, Float32Operator(f32)
     try:
         t0 = time.perf_counter()
         v = reg.var(torch.from_numpy(xq), block_size=block_size, tol=FF_VAR_TOL).double().cpu()
         sync()
         secs = time.perf_counter() - t0
     finally:
-        reg._kron_ff = saved
+        reg._gram_linop = saved
     (it, rr), = reg.var_info
     return dict(seconds=secs, iterations=it, relres=rr), v
 
@@ -2035,7 +2356,7 @@ def phase_grid(timing=None, **kw) -> dict:
     f64, each with the launch counts set to 0 before it and read just after
     its work: K1 and K2 must launch, the multi-column and banded routes must
     not (the CG's matvecs are structured).  Then ff's variance at tol
-    ``FF_VAR_TOL`` against f64's reference: within :data:`GRID_FF_VAR_BOUND`
+    ``FF_VAR_TOL`` against f64's reference: within :data:`VAR_REL_BOUND`
     of max var, which its control must miss.  Returns the launches summed
     over the runs."""
     total = {name: 0 for name in KERNELS}
@@ -2080,10 +2401,10 @@ def phase_grid(timing=None, **kw) -> dict:
               f"{per:.3e} of var, per query <= {REF_AGREE:g}")
         e_ff = ((tight - ref).abs().max() / ref.max()).item()
         e_ctrl = ((control - ref).abs().max() / ref.max()).item()
-        check(e_ff <= GRID_FF_VAR_BOUND,
+        check(e_ff <= VAR_REL_BOUND,
               f"grid var: ff at tol {FF_VAR_TOL:g} vs the f64 reference: {e_ff:.3e} of max var <= "
-              f"{GRID_FF_VAR_BOUND:g} (the heat cells' {VAR_REL_BOUND:g} is not met: ROADMAP Queue 3)")
-        check(e_ctrl > GRID_FF_VAR_BOUND,
+              f"{VAR_REL_BOUND:g}")
+        check(e_ctrl > VAR_REL_BOUND,
               f"grid var: the control (the ff CG on the float32 Kronecker operator) fails that bound: "
               f"{e_ctrl:.3e} of max var, {((control - ref).abs() / ref).max().item():.3e} of var per query")
     return total
@@ -2114,7 +2435,7 @@ def main(argv=None) -> int:
         f"float32_matmul_precision={torch.get_float32_matmul_precision()}")
 
     timing, banded_timing = {}, {}
-    launches = {"main": {}, "dense": {}, "grid": {}}
+    launches = {"main": {}, "dense": {}, "mean": {}, "grid": {}}
     for phase in PHASES:
         if phase not in phases and phase not in ("device", "build"):
             continue
@@ -2136,6 +2457,10 @@ def main(argv=None) -> int:
                 launches["main"] = phase_main(specs, k0, n, nq, rank)
             elif phase == "dense":
                 launches["dense"] = phase_dense(DENSE_N, nq)
+            elif phase == "mean":
+                launches["mean"] = phase_mean(n, nq)
+            elif phase == "symbolic":
+                phase_symbolic()
             else:
                 launches["grid"] = phase_grid(timing)
         except Exception as exc:  # noqa: BLE001 - every phase reports, then the script fails

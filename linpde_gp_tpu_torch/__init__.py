@@ -8,10 +8,15 @@ mirrors its module paths and names and never imports JAX.  Ported so far:
   :class:`models.gp.ConditionalGaussianProcess` with incremental Cholesky
   extension), with random variables, functionals, cross-covariances and
   structured linear algebra, in float64;
-- gram-free GP conditioning on operator observations
+- gram-free GP conditioning on operator observations, with any prior mean
   (:class:`models.iterative.IterativeGPRegressor`);
-- the symbolic layer that derives closed-form kernel specs
-  (``ops/kernels``, ``ops/diffops``, ``ops/transforms``).
+- the symbolic layer: any linear operator on any function (the exact
+  shortcuts, else forward-mode autodiff) and on every kernel of the JAX
+  package but the parametric ones (closed forms for the product and radial
+  Matérn families, the general-``nu`` Matérn through a host Bessel call,
+  multi-output kernels, autodiff for the rest), and the closed-form kernel
+  specs the CUDA kernels evaluate (``ops/kernels``, ``ops/diffops``,
+  ``ops/transforms``).
 
 Both engines evaluate kernels through hand-written CUDA kernels for Gram
 assembly and the Gram matvec (``csrc/gram.cuh``) and the banded matvec of

@@ -23,17 +23,28 @@ batch by block elimination: CG runs on the Schur complement ``S = A22 -
 W A11^{-1} W^T`` with ``A22 = L k L* + sigma^2 I``, ``W = (L k)(X, X1)``
 and ``A11 = k(X1, X1) + anchor_noise I``.  The posterior variance solves
 blocks of query columns by blocked ff CG (``pcg_block_ff``), one shared
-K2 (or banded) launch of the multi-column route per iteration.  The
-prior mean is zero.
+K2 (or banded) launch of the multi-column route per iteration.
+
+The prior mean ``m`` may be any function (``iterative.py:177-184``,
+``:518-523``, ``:552`` of the JAX package): the CG solves for the residual
+``Y - (L m)(X)`` (the anchors for ``Y1 - m(X1)``) and the mean adds
+``m(xq)``.  A kernel without a sum-of-products spec (radial, autodiff,
+general-``nu`` Matérn) takes its dense Gram ``gram_matrix(k_obs, X)`` in
+the CG matvec and ``gram_matrix(k_cross, xq, X)`` in the mean
+(``iterative.py:425-432``, ``:536-545`` there), evaluated once by its own
+``_evaluate`` in float64 and kept.
 
 Grid mode (``iterative.py:189-225`` of the JAX package): collocation
 points given as a ``TensorProductGrid`` of two or more factors make the
 observation Gram a sum of Kronecker products of small factor tables, and
 the CG matvec (of the solve and of ``var``'s blocked CG) takes O(N (n_1 +
-... + n_d)) instead of K2's O(N^2): in mode ff on 2-factor grids the
-compensated :class:`~ops.kron_ff.KronFFMatvec`; in modes f64 and plain
-(and ff on other grids) the Kronecker operator of
-:func:`~ops.kron_ff.kron_linop`, in float64 (plain: float32).  The
+... + n_d)) instead of K2's O(N^2): the Kronecker operator of
+:func:`~ops.kron_ff.kron_linop`, in float64 (plain: float32), whose
+product mode ff splits into the CG's ff pair.  The JAX package takes the
+compensated :class:`~ops.kron_ff.KronFFMatvec` in mode ff on 2-factor
+grids; its float32 sums inside each chunk left the grid variance 1.6e-4 of
+max var off float64's on an H100, where the float64 operator is exact and
+faster (PERF.md).  The
 Nyström build, the anchor blocks, the mean and ``var``'s ``kxX`` stay on
 K1 and K2 at the flattened grid points (C order, row ``t * n_x + x``).
 """
@@ -47,7 +58,7 @@ from ..config import mode_dtype, resolve_device, resolve_mode
 from ..ops.banded import compact_support_radius, make_banded_matvec
 from ..ops.ff import ff_split
 from ..ops.gram import gram, gram_matrix, gram_matvec, kernel_term_specs
-from ..ops.kron_ff import KronFFMatvec, kron_linop
+from ..ops.kron_ff import kron_linop
 from ..ops.linalg.chol import cho_solve, cholesky
 from ..ops.linalg.pcg import landmark_indices, nystrom_preconditioner_device, pcg_block_ff, pcg_ff
 from ..ops.transforms.dispatch import apply_operator_to_kernel
@@ -58,14 +69,15 @@ from .gp import GaussianProcess
 
 
 class IterativeGPRegressor:
-    """Condition a zero-mean scalar GP on one operator-observation set,
-    gram-free, optionally jointly with a small anchor batch.
+    """Condition a scalar GP on one operator-observation set, gram-free,
+    optionally jointly with a small anchor batch.
 
     Parameters
     ----------
     prior:
-        Scalar-output :class:`GaussianProcess` with a ``Zero`` mean and a
-        kernel of the closed-form sum-of-products family.
+        Scalar-output :class:`GaussianProcess`, any mean; kernels of the
+        closed-form sum-of-products family take K1 and K2, others their
+        dense Gram.
     X:
         ``(n,) + input_shape`` collocation points, or a ``TensorProductGrid``
         (grid mode).
@@ -111,25 +123,21 @@ class IterativeGPRegressor:
     ):
         if prior.output_shape != ():
             raise ValueError("IterativeGPRegressor supports scalar outputs.")
-        if not isinstance(prior.mean, Zero):
-            raise NotImplementedError("only a Zero prior mean is ported yet (ROADMAP Queue 1 item 9b)")
         k = prior.cov
         if L is not None:
             k_obs = apply_operator_to_kernel(L, apply_operator_to_kernel(L, k, argnum=1), argnum=0)
             k_cross = apply_operator_to_kernel(L, k, argnum=1)
+            mean_obs = prior.mean if isinstance(prior.mean, Zero) else L(prior.mean)
         else:
             k_obs = k_cross = k
-        obs_spec, cross_spec = kernel_term_specs(k_obs), kernel_term_specs(k_cross)
-        if obs_spec is None or cross_spec is None:
-            raise NotImplementedError(
-                "the kernel has no sum-of-products spec (other kernels: ROADMAP Queue 1 item 9d)"
-            )
+            mean_obs = prior.mean
         grid = grid_factors(X)  # before X becomes a tensor, which drops the factors
         X = torch.as_tensor(np.asarray(X) if grid is not None else X).reshape((-1,) + tuple(prior.input_shape))
         self.prior = prior
         self.L = L
-        self._k_cross = k_cross
-        self._setup(obs_spec, cross_spec, X, Y, noise_variance, tol, maxiter, precond_rank, mode, device, grid)
+        self._k_obs, self._k_cross, self._mean_obs = k_obs, k_cross, mean_obs
+        self._setup(kernel_term_specs(k_obs), kernel_term_specs(k_cross), X, Y, noise_variance, tol, maxiter,
+                    precond_rank, mode, device, grid)
         if anchor_X is not None:
             if anchor_Y is None:
                 raise ValueError("anchor_X needs anchor_Y")
@@ -160,7 +168,7 @@ class IterativeGPRegressor:
         self = cls.__new__(cls)
         self.prior = None
         self.L = None
-        self._k_cross = None
+        self._k_obs = self._k_cross = self._mean_obs = None
         grid = grid_factors(X)
         if grid is not None:
             X = np.asarray(X).reshape(-1, len(grid))
@@ -180,12 +188,14 @@ class IterativeGPRegressor:
         self._obs_spec = obs_spec
         self._cross_spec = cross_spec
         self._grid_factors = grid
+        self._dense_gram = None
         self._setup_grid()
         # Compact support along dimension 0 and no grid operator: the CG
         # matvec walks only the band, if the band skips column tiles
         # (iterative.py:235-247 of the JAX package).
         self._banded = None
-        if self._gram_linop is None and compact_support_radius(obs_spec[1], 0) is not None:
+        if (self._gram_linop is None and obs_spec is not None
+                and compact_support_radius(obs_spec[1], 0) is not None):
             banded = make_banded_matvec(obs_spec, self.X, self.X, mode=self.mode)
             if banded.band_tiles < banded.total_tiles:
                 self._banded = banded
@@ -201,23 +211,20 @@ class IterativeGPRegressor:
         self._var_info = None
 
     def _setup_grid(self):
-        """The grid operators (``iterative.py:189-225`` of the JAX package):
-        ``_gram_linop``, the observation Gram's Kronecker operator, and in
-        mode ff on 2-factor grids ``_kron_ff``, its compensated matvec, which
-        the CG takes in its place; both ``None`` off grids.  They are built
-        from the spec and the factors rounded to the mode's dtype, as the
-        points are stored, so that the CG operator and the K1 and K2 blocks
-        (Nyström, anchors, mean, ``kxX``) see the same points."""
-        self._gram_linop = self._kron_ff = None
+        """``_gram_linop``, the observation Gram's Kronecker operator on a grid
+        (``iterative.py:189-225`` of the JAX package), or ``None``: float64 in
+        modes f64 and ff (ff splits its product into the CG's pair), float32
+        in plain.  It is built from the spec and the factors rounded to the
+        mode's dtype, as the points are stored, so that the CG operator and
+        the K1 and K2 blocks (Nyström, anchors, mean, ``kxX``) see the same
+        points."""
+        self._gram_linop = None
         factors = self._grid_factors
-        if factors is None or len(factors) < 2 or len(factors) != self.X.shape[1]:
+        if factors is None or self._obs_spec is None or len(factors) < 2 or len(factors) != self.X.shape[1]:
             return
         np_dtype = np.float64 if self.mode == "f64" else np.float32
         factors = [np.asarray(g).astype(np_dtype).astype(np.float64) for g in factors]
-        dtype = torch.float32 if self.mode == "plain" else torch.float64
-        self._gram_linop = kron_linop(self._obs_spec, factors, dtype=dtype, device=self.device)
-        if self.mode == "ff" and len(factors) == 2:
-            self._kron_ff = KronFFMatvec(self._obs_spec, factors, device=self.device)
+        self._gram_linop = kron_linop(self._obs_spec, factors, dtype=self._dtype, device=self.device)
 
     # -- the anchor batch (iterative.py:255-279 of the JAX package) ------------
     @property
@@ -241,13 +248,16 @@ class IterativeGPRegressor:
         )
 
     # -- checkpoint / resume (utils/serialization.py) ------------------------------
-    # The solved state and the geometry pickle; the banded schedule and the
-    # grid operators are dropped and rebuilt on load (from the points, or
-    # the spec and the grid factors), on the device the tensors come back on.
+    # The solved state and the geometry pickle; the banded schedule, the
+    # grid operator and the dense Gram are dropped and rebuilt on load (from
+    # the points, or the spec and the grid factors), on the device the
+    # tensors come back on.  A prior mean or observation mean that does not
+    # pickle (a LambdaFunction of a lambda) makes pickling fail, as it does
+    # in the JAX package; it is never dropped.
     def __getstate__(self):
         state = self.__dict__.copy()
         state["_had_banded"] = self._banded is not None
-        state["_banded"] = state["_gram_linop"] = state["_kron_ff"] = None
+        state["_banded"] = state["_gram_linop"] = state["_dense_gram"] = None
         return state
 
     def __setstate__(self, state):
@@ -265,9 +275,12 @@ class IterativeGPRegressor:
         U1^T`` (``iterative.py:378-418``), which is itself a PSD kernel:
         a preconditioner of ``A22`` alone leaves ~n1 directions badly
         mapped."""
-        scale, terms = self._obs_spec
-        out = gram(terms, x0, x1, self.mode)
-        out = scale * out if scale != 1.0 else out
+        if self._obs_spec is None:
+            out = gram_matrix(self._k_obs, x0, x1, self.mode)
+        else:
+            scale, terms = self._obs_spec
+            out = gram(terms, x0, x1, self.mode)
+            out = scale * out if scale != 1.0 else out
         a = self._anchors
         if a is not None:
             dt = a["W"].dtype
@@ -289,25 +302,34 @@ class IterativeGPRegressor:
             idx = landmark_indices(self.X.shape[0], self.precond_rank, device=self.device)
             self._precond = nystrom_preconditioner_device(
                 self._precond_block_fn, self.X, self.X[idx], self.noise_variance,
-                dtype=torch.float32 if self.mode == "plain" else torch.float64,
+                dtype=self._dtype,
             )
         return self._precond
+
+    def _dense_obs_gram(self):
+        """The observation Gram ``k_obs(X, X)`` of a kernel without a spec
+        (float64, plain: float32), formed at first use and kept; ``None``
+        for a kernel with a spec."""
+        if self._obs_spec is not None:
+            return None
+        if self._dense_gram is None:
+            self._dense_gram = gram_matrix(self._k_obs, self.X, None, "f64").to(self._dtype)
+        return self._dense_gram
 
     def _gram_matvec_raw(self, v_ff):
         """Gram matvec of an ff pair (``(n,)`` or ``(n, r)`` planes) WITHOUT
         the noise shift (the CG applies sigma^2 itself, in float-float),
-        routed as ``iterative.py:421-432`` of the JAX package: the
-        compensated grid matvec, the grid operator, the banded kernel, K2.
-        Mode ff feeds both planes to the kernel and returns the result's ff
-        pair (the grid operator, on grids KronFF does not take: the split of
-        its float64 product); the other modes read the hi plane and return
+        routed as ``iterative.py:421-432`` of the JAX package: the grid
+        operator, the banded kernel, K2, or a kernel without a spec's dense
+        Gram.  Mode ff feeds both planes to the kernel and returns the
+        result's ff pair (the grid operator and the dense Gram: the split of
+        their float64 product); the other modes read the hi plane and return
         one tensor."""
-        if self._kron_ff is not None:
-            return self._kron_ff(v_ff)
-        if self._gram_linop is not None:
+        op = self._gram_linop if self._gram_linop is not None else self._dense_obs_gram()
+        if op is not None:
             if self.mode == "ff":
-                return ff_split(self._gram_linop @ (v_ff[0].double() + v_ff[1].double()), v_ff[0].dtype)
-            return self._gram_linop @ v_ff[0]
+                return ff_split(op @ (v_ff[0].double() + v_ff[1].double()), v_ff[0].dtype)
+            return op @ v_ff[0]
         if self.mode != "ff":
             v_ff = v_ff[0]
         if self._banded is not None:
@@ -356,7 +378,8 @@ class IterativeGPRegressor:
     def refit(self, Y, anchor_Y=None) -> "IterativeGPRegressor":
         """Re-condition on new observation values (and new anchor values),
         reusing the Nyström preconditioner, the anchor factor and the band
-        schedule (they depend only on the geometry)."""
+        schedule (they depend only on the geometry); the next solve forms
+        the residuals against the prior mean anew."""
         self.Y = torch.as_tensor(Y).reshape(-1).to(device=self.device, dtype=self.X.dtype)
         if anchor_Y is not None:
             if self._anchors is None:
@@ -368,26 +391,54 @@ class IterativeGPRegressor:
         self._solve_info = None
         return self
 
+    @property
+    def _dtype(self) -> torch.dtype:
+        """The dtype of the solver's state past the points' precision (the
+        Nyström factors, the dense Gram, residuals, the variance's quadratic
+        form): float64 unless the mode is plain."""
+        return torch.float32 if self.mode == "plain" else torch.float64
+
+    def _mean_at(self, f, X) -> torch.Tensor | None:
+        """The function ``f`` (a prior mean or ``L`` of it) at stored ``(n,
+        d)`` points ``X``, evaluated in float64 on the points as stored (the
+        points K1 and K2 see) and returned in :attr:`_dtype`; ``None`` for a
+        zero or absent mean."""
+        if f is None or isinstance(f, Zero):
+            return None
+        vals = f(X.double().reshape((-1,) + tuple(self.prior.input_shape)))
+        return vals.reshape(-1).to(self._dtype)
+
     def _weights_ff(self):
         """The solved weights as the CG's ff pair ``(hi, lo)``; with anchors
-        also the anchor weights (``iterative.py:515-529``)."""
+        also the anchor weights (``iterative.py:515-529``).  The right-hand
+        side is the residual ``Y - (L m)(X)`` (with anchors, minus ``W
+        A11^{-1} (Y1 - m(X1))``), formed in float64 (plain: float32) and
+        handed to the CG as an ff pair in mode ff."""
         if self._weights is None:
             a = self._anchors
-            if a is None:
-                self._weights = self._solve_device_cg(self.Y)
-            else:
+            resid = self.Y.to(self._dtype)
+            m_obs = self._mean_at(self._mean_obs, self.X)
+            if m_obs is not None:
+                resid = resid - m_obs
+            if a is not None:
+                r1 = a["Y1"]
+                m1 = self._mean_at(self.prior.mean, a["X1"])
+                if m1 is not None:
+                    r1 = r1 - m1.to(r1)
+                resid = resid.to(r1) - a["W"] @ cho_solve(a["chol1"], r1)
+            rhs = ff_split(resid.double(), self.X.dtype) if self.mode == "ff" else resid.to(self.X.dtype)
+            self._weights = self._solve_device_cg(rhs)
+            if a is not None:
                 dt = a["W"].dtype
-                t1 = cho_solve(a["chol1"], a["Y1"])
-                rhs = (self.Y.to(dt) - a["W"] @ t1).to(self.Y.dtype)
-                self._weights = self._solve_device_cg(rhs)
                 w = self._weights[0].to(dt) + self._weights[1].to(dt)
-                self._anchor_weights = cho_solve(a["chol1"], a["Y1"] - a["W"].T @ w)
+                self._anchor_weights = cho_solve(a["chol1"], r1 - a["W"].T @ w)
         return self._weights
 
     @property
     def representer_weights(self) -> torch.Tensor:
-        """The weights ``S^{-1} (Y - W A11^{-1} Y1)`` (``(K + sigma^2 I)^{-1}
-        Y`` without anchors).  Mode ff returns them in float64 (``hi + lo``
+        """The weights ``S^{-1} (r - W A11^{-1} r1)`` of the residuals ``r = Y
+        - (L m)(X)`` and ``r1 = Y1 - m(X1)`` (``(K + sigma^2 I)^{-1} r``
+        without anchors).  Mode ff returns them in float64 (``hi + lo``
         of the ff pair): rounding to float32 alone costs a 1.6e-3 true
         relative residual at N = 1e5, noise 1e-3 (PERF.md).  The other
         modes return the mode's dtype."""
@@ -396,7 +447,7 @@ class IterativeGPRegressor:
 
     @property
     def anchor_weights(self) -> torch.Tensor | None:
-        """The anchor batch's weights ``A11^{-1} (Y1 - W^T w)`` in the anchor
+        """The anchor batch's weights ``A11^{-1} (r1 - W^T w)`` in the anchor
         blocks' dtype, or ``None`` without anchors."""
         self._weights_ff()
         return self._anchor_weights
@@ -416,21 +467,29 @@ class IterativeGPRegressor:
     def mean(self, x) -> torch.Tensor:
         """Posterior mean at ``batch + input_shape`` query points (or ``(nq,
         d)`` for a regressor built from specs), of shape ``batch``, on the
-        regressor's device, in the mode's dtype; with anchors ``+ k(xq, X1)
-        @ anchor_weights`` (``iterative.py:547-551``), added in the anchor
-        blocks' dtype."""
+        regressor's device, in the mode's dtype: ``m(xq) + (k L*)(xq, X) @ w``
+        (``iterative.py:532-552``), with anchors ``+ k(xq, X1) @
+        anchor_weights``.  The terms are summed in float64 (plain: float32)
+        and rounded once."""
         xq, batch = self._queries(x), self._batch_shape(x)
         w = self._weights_ff()
-        if self.mode == "ff":
-            mu = gram_matvec(self._cross_spec, xq, self.X, w, self.mode)[0]
+        if self._cross_spec is None:
+            w64 = w[0].double() + w[1].double()
+            mu = gram_matrix(self._k_cross, xq, self.X, "f64").to(self._dtype) @ w64.to(self._dtype)
+        elif self.mode == "ff":
+            hi, lo = gram_matvec(self._cross_spec, xq, self.X, w, self.mode)
+            mu = hi.double() + lo.double()
         else:
             mu = gram_matvec(self._cross_spec, xq, self.X, w[0], self.mode)
         a = self._anchors
         if a is not None:
             dt = a["W"].dtype
             k1 = gram_matrix(self.prior.cov, xq.to(dt), a["X1"], self._anchor_mode)
-            mu = (mu.to(dt) + k1 @ self._anchor_weights).to(mu.dtype)
-        return mu.reshape(batch)
+            mu = mu.to(dt) + k1 @ self._anchor_weights
+        m = self._mean_at(None if self.prior is None else self.prior.mean, xq)
+        if m is not None:
+            mu = mu.to(m) + m
+        return mu.to(self.X.dtype).reshape(batch)
 
     def var(self, x, *, block_size: int = 256, tol: float | None = None) -> torch.Tensor:
         """Posterior variance at ``batch + input_shape`` query points, of
@@ -455,7 +514,7 @@ class IterativeGPRegressor:
             raise ValueError("var needs the prior covariance; a regressor built by from_specs has none")
         xq, batch = self._queries(x), self._batch_shape(x)
         a = self._anchors
-        dt = torch.float32 if self.mode == "plain" else torch.float64
+        dt = self._dtype
         M = self._preconditioner()
         updates, info = [], []
         # kxX in the quadratic form's dtype: f64 K1 on the points as stored.

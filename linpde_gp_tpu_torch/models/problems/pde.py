@@ -4,9 +4,8 @@ and the closed-form solutions that serve as oracles.
 Port of ``linpde_gp_tpu/models/problems/pde.py``.  The problems are data
 (domains, operators, functions); the solutions evaluate on torch tensors,
 on the input's device and dtype.  Conditioning a prior on a problem's
-right-hand side goes through the operator layer, where a right-hand side
-other than a zero function applied to a prior mean is ROADMAP Queue 1
-item 9b.
+right-hand side goes through the operator layer, which applies the
+problem's operator to any prior mean (``ops/transforms/dispatch.py``).
 """
 
 from __future__ import annotations

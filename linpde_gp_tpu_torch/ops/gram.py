@@ -375,23 +375,24 @@ def gram(terms, X0, X1, mode=None) -> torch.Tensor:
 
 
 def gram_matrix(kernel, X0, X1=None, mode=None) -> torch.Tensor:
-    """Dense Gram ``k(X0, X1)`` of a scalar kernel of the sum-of-products
-    family (``pallas_gram.py:499`` of the JAX package): ``scale * gram(terms,
-    ...)`` of ``kernel_term_specs(kernel)``, so K1 on CUDA tensors and
-    :func:`gram_plain` on CPU tensors.  ``X0`` / ``X1``: ``(n,) +
-    input_shape`` points (``X1=None``: ``X0``).  A kernel without a spec
-    raises ``NotImplementedError`` (other closed forms are ROADMAP Queue 1
-    item 9d; the dense engine evaluates such kernels by their own
-    ``_evaluate``)."""
-    spec = kernel_term_specs(kernel)
-    if spec is None:
-        raise NotImplementedError(
-            f"{type(kernel).__name__} has no sum-of-products spec (other kernels: ROADMAP Queue 1 item 9d)"
-        )
-    scale, terms = spec
+    """Dense Gram ``k(X0, X1)`` of a scalar kernel (``pallas_gram.py:499`` of
+    the JAX package).  A kernel of the sum-of-products family takes ``scale *
+    gram(terms, ...)`` of ``kernel_term_specs(kernel)``: K1 on CUDA tensors,
+    :func:`gram_plain` on CPU tensors.  Any other kernel (radial, autodiff,
+    general-``nu`` Matérn) is evaluated by its own ``_evaluate`` on the
+    broadcast points, in torch on the points' device (the JAX package forms
+    it outside any Pallas kernel too), in float64 on the points rounded to
+    the mode's dtype, and returned in that dtype.  ``X0`` / ``X1``: ``(n,) +
+    input_shape`` points (``X1=None``: ``X0``)."""
     X0 = _as_points(X0, mode)
     X1 = X0 if X1 is None else _as_points(X1, mode)
     d = max(kernel.input_size, 1)
+    spec = kernel_term_specs(kernel)
+    if spec is None:
+        shape = (-1,) + tuple(kernel.input_shape)
+        out = kernel.matrix(X0.double().reshape(shape), X1.double().reshape(shape))
+        return out.to(mode_dtype(mode))
+    scale, terms = spec
     out = gram(terms, X0.reshape(-1, d), X1.reshape(-1, d), mode)
     return scale * out if scale != 1.0 else out
 

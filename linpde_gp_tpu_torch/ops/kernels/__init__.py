@@ -1,7 +1,10 @@
-"""Covariance functions of the port (the closed-form product family)."""
+"""Covariance functions of the port: the closed-form product family, the
+general-``nu`` Matérn and the multi-output kernels."""
 
 from .arithmetic import ScaledCovarianceFunction, SumCovarianceFunction, ZeroCovarianceFunction
 from .base import CovarianceFunction, StationaryMixin
+from .bessel import kv, matern_bessel
+from .multioutput import IndependentMultiOutputCovarianceFunction, StackCovarianceFunction
 from .stationary import ExpQuad, Matern, half_integer_matern_coefficients
 from .tensor_product import TensorProduct
 from .wendland import (
@@ -21,6 +24,10 @@ __all__ = [
     "ExpQuad",
     "Matern",
     "half_integer_matern_coefficients",
+    "kv",
+    "matern_bessel",
+    "IndependentMultiOutputCovarianceFunction",
+    "StackCovarianceFunction",
     "TensorProduct",
     "WendlandCovarianceFunction",
     "WendlandFunction",

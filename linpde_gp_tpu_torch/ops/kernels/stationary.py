@@ -3,9 +3,8 @@
 Port of ``linpde_gp_tpu/ops/kernels/stationary.py`` (probnum
 conventions: ``ExpQuad`` is ``exp(-0.5 ||(x0-x1)/l||^2)``; ``Matern``
 uses ``t = sqrt(2 nu) ||(x0-x1)/l||`` and, for half-integer ``nu``, the
-exact polynomial-times-exponential closed form).  General ``nu`` needs
-the modified Bessel function and comes with the rest of the symbolic
-layer (ROADMAP Queue 1 item 9d).
+exact polynomial-times-exponential closed form; a general ``nu`` through
+the modified Bessel function of ``bessel.py``, a host round trip).
 """
 
 from __future__ import annotations
@@ -58,8 +57,9 @@ def half_integer_matern_coefficients(p: int) -> tuple[Fraction, ...]:
 
 class Matern(StationaryMixin, CovarianceFunction):
     r"""Matérn covariance with smoothness ``nu``: ``nu = inf`` is the
-    Gaussian kernel, half-integer ``nu`` the exact polynomial closed form.
-    Evaluating a general ``nu`` raises ``NotImplementedError``."""
+    Gaussian kernel, half-integer ``nu`` the exact polynomial closed form,
+    any other ``nu`` the Bessel form :func:`~.bessel.matern_bessel`, whose
+    ``K_nu`` scipy evaluates on the host."""
 
     def __init__(self, input_shape=(), nu: float = 1.5, lengthscales=1.0):
         super().__init__(input_shape)
@@ -101,12 +101,11 @@ class Matern(StationaryMixin, CovarianceFunction):
     def _evaluate(self, x0, x1):
         if self._nu == np.inf:
             return torch.exp(-self._squared_scaled_distances(x0, x1, self._scale_factors))
-        if self._poly is None:
-            raise NotImplementedError(
-                f"Matern(nu={self._nu}): general nu (Bessel evaluation) is not ported yet "
-                "(ROADMAP Queue 1 item 9d)"
-            )
         t = self._scaled_distances(x0, x1, self._scale_factors)
+        if self._poly is None:
+            from .bessel import matern_bessel
+
+            return matern_bessel(self._nu, t)
         return self._poly._evaluate(t) * torch.exp(-t)
 
     def __repr__(self):

@@ -37,6 +37,14 @@ heavily, so they are never summed inside one float32 GEMM: that loses a
 third of the accuracy on the heat kernel.  These are plain GEMMs (cuBLAS
 on the card, float32 without TF32), as they are plain XLA GEMMs outside
 any Pallas kernel in the JAX package.
+
+The regressor no longer takes this matvec: its float32 sums inside each
+chunk err by ~7e-6 ||v|| on the 500 x 200 heat grid, which left the grid's
+ff variance 1.6e-4 of max var off float64's on an H100 (80GB HBM3, 700 W),
+where the float64 Kronecker operator of :func:`kron_linop` is exact and
+faster (0.43 against 3.22 ms at r = 1, 4.67 against 80.1 ms at r = 256).
+Mode ff's grid CG takes that operator's ff split (``models/iterative.py``);
+this class stays as the port of the JAX module, with its parity tests.
 """
 
 from __future__ import annotations

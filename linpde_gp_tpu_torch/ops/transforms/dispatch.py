@@ -1,26 +1,29 @@
-"""The rule engine: apply linear operators to covariance functions.
+"""The rule engine: apply linear operators to functions, covariance
+functions and processes.
 
-Port of ``linpde_gp_tpu/ops/transforms/dispatch.py`` on the closed-form
-product route only:
+Port of ``linpde_gp_tpu/ops/transforms/dispatch.py``:
 
 1. Operators are normalized to coefficient tables (:func:`as_coefficients`).
 2. Transformed kernels carry their provenance ``(base, coeffs0, coeffs1)``,
    so a second operator composes symbolically (:func:`compose_coefficients`).
 3. The closed form is built when the base kernel is a product
-   (``product.py``).
+   (``product.py``), else for an isotropic multivariate half-integer Matérn
+   (``radial.py``); any other kernel takes the autodiff fallback
+   (``autodiff.py``), never an error.  Multi-output kernels take the
+   ``SelectOutput`` and stacked-slot rewrites.
 
-Where the JAX package falls back to radial closed forms or to autodiff
-(``dispatch.py:274-284`` there), this port raises ``NotImplementedError``:
-those routes come with ROADMAP Queue 1 item 9d.  It never returns a
-different kernel in their place.  Operators act on processes and on zero
-functions here too; other functions wait for item 9b.
+Functions: coefficient diffops through ``apply_diffop_to_function`` (its
+exact shortcuts, else autodiff), output selection, and scaled, summed and
+composite operators.  Operators also act on processes and
+cross-covariances (:func:`apply_operator`).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from ...models.functions.base import Function, Zero
+from ...models.functions.base import Function, LambdaFunction, Zero
+from ...models.functions.basic import StackedFunction
 from ..diffops.coefficients import MultiIndex, PartialDerivativeCoefficients
 from ..diffops.lindiffop import LinearDifferentialOperator
 from ..diffops.linfuncop import (
@@ -33,9 +36,10 @@ from ..diffops.linfuncop import (
 )
 from ..kernels.arithmetic import ScaledCovarianceFunction, SumCovarianceFunction, ZeroCovarianceFunction
 from ..kernels.base import CovarianceFunction
+from ..kernels.multioutput import IndependentMultiOutputCovarianceFunction, StackCovarianceFunction
+from .autodiff import AutodiffTransformedKernel, apply_diffop_to_function
 from .product import SumOfProductsKernel, transform_product_kernel
-
-_NOT_PORTED = "(radial closed forms and the autodiff fallback are ROADMAP Queue 1 item 9d)"
+from .radial import RadialMaternDerivativeKernel, transform_radial_kernel
 
 
 def as_coefficients(op: LinearFunctionOperator) -> PartialDerivativeCoefficients | None:
@@ -113,23 +117,43 @@ def apply_operator(op: LinearFunctionOperator, obj, /, **kwargs):
 
 
 def apply_operator_to_function(op: LinearFunctionOperator, f: Function) -> Function:
-    """``op(f)`` symbolically: the identity keeps ``f``, and a zero function
-    stays zero with the operator's output shapes.  Other functions wait for
-    ROADMAP Queue 1 item 9b."""
+    """``op(f)`` symbolically (``dispatch.py:136-168`` of the JAX package):
+    output selection, coefficient diffops through
+    :func:`~.autodiff.apply_diffop_to_function`, and scaled, summed and
+    composite operators.  A zero function stays zero, with the operator's
+    output shapes."""
     if isinstance(op, Identity):
         return f
     if isinstance(f, Zero):
         return Zero(op.output_domain_shape, op.output_codomain_shape)
-    raise NotImplementedError(
-        f"Applying an operator to {type(f).__name__} is not ported yet (functions: ROADMAP Queue 1 item 9b)."
-    )
+    if isinstance(op, SelectOutput):
+        if isinstance(f, StackedFunction) and len(op.idx) == 1:
+            return f.fns[op.idx[0]]
+        return LambdaFunction(lambda x, f=f, idx=op.idx: f(x)[(Ellipsis,) + idx], op.input_domain_shape, ())
+    coeffs = as_coefficients(op)
+    if coeffs is not None:
+        return apply_diffop_to_function(coeffs, f)
+    if isinstance(op, ScaledLinearFunctionOperator):
+        return op.scalar * apply_operator_to_function(op.linfuncop, f)
+    if isinstance(op, SumLinearFunctionOperator):
+        out = None
+        for s in op.summands:
+            term = apply_operator_to_function(s, f)
+            out = term if out is None else out + term
+        return out
+    if isinstance(op, CompositeLinearFunctionOperator):
+        for sub in reversed(op.linfuncops):
+            f = apply_operator_to_function(sub, f)
+        return f
+    raise NotImplementedError(f"Cannot apply operator {type(op).__name__} to a function.")
 
 
 def apply_operator_to_kernel(
     op: LinearFunctionOperator, kernel: CovarianceFunction, *, argnum: int
 ) -> CovarianceFunction:
     """Apply a linear operator to one argument of a covariance function:
-    ``L k`` for ``argnum=0``, ``k L*`` for ``argnum=1``."""
+    ``L k`` for ``argnum=0``, ``k L*`` for ``argnum=1``.  Closed forms for
+    the product and radial families, the autodiff fallback otherwise."""
     if argnum not in (0, 1):
         raise ValueError(f"argnum must be 0 or 1, got {argnum!r}")
     if isinstance(op, Identity):
@@ -144,8 +168,22 @@ def apply_operator_to_kernel(
         out0 = kernel.output_shape_0 if argnum == 1 else op.output_codomain_shape
         out1 = kernel.output_shape_1 if argnum == 0 else op.output_codomain_shape
         return ZeroCovarianceFunction(op.output_domain_shape, out0, out1)
+    if isinstance(kernel, StackCovarianceFunction):
+        if argnum != kernel.stack_argnum:
+            # The operator acts on the scalar slot: distribute over the entries.
+            return StackCovarianceFunction(
+                *(apply_operator_to_kernel(op, k, argnum=argnum) for k in kernel.covfuncs),
+                stack_argnum=kernel.stack_argnum,
+            )
+        if isinstance(op, SelectOutput) and len(op.idx) == 1:
+            return kernel.covfuncs[op.idx[0]]
+        # Unfold structured operators until a SelectOutput reaches the stacked slot.
+        structured = _decompose_structured_op(op, kernel, argnum)
+        if structured is not None:
+            return structured
+        raise NotImplementedError("Only SelectOutput can act on the stacked slot of a StackCovarianceFunction.")
     if isinstance(op, SelectOutput):
-        raise NotImplementedError("multi-output kernels are not ported yet (ROADMAP Queue 1 item 9d)")
+        return _select_output_kernel(op, kernel, argnum)
 
     # -- operator structure ---------------------------------------------------
     coeffs = as_coefficients(op)
@@ -156,7 +194,9 @@ def apply_operator_to_kernel(
         raise NotImplementedError(f"Cannot apply {type(op).__name__} to a kernel.")
 
     # -- diffop path: compose with provenance --------------------------------------
-    if isinstance(kernel, SumOfProductsKernel) and kernel.base is not None:
+    if isinstance(kernel, (SumOfProductsKernel, AutodiffTransformedKernel, RadialMaternDerivativeKernel)) and (
+        kernel.base is not None
+    ):
         base = kernel.base
         c0, c1 = kernel.coeffs0, kernel.coeffs1
         if argnum == 0:
@@ -171,11 +211,10 @@ def apply_operator_to_kernel(
     closed = transform_product_kernel(base, c0, c1)
     if closed is not None:
         return closed
-    raise NotImplementedError(
-        f"No closed form for {op!r} on {type(base).__name__} {_NOT_PORTED}: the kernel is not a "
-        "product of ExpQuad/half-integer Matern/Wendland factors, or the derivative order exceeds "
-        "its smoothness."
-    )
+    radial = transform_radial_kernel(base, c0, c1)
+    if radial is not None:
+        return radial
+    return AutodiffTransformedKernel(base, c0, c1)
 
 
 def _decompose_structured_op(op: LinearFunctionOperator, kernel: CovarianceFunction, argnum: int):
@@ -191,3 +230,40 @@ def _decompose_structured_op(op: LinearFunctionOperator, kernel: CovarianceFunct
             out = apply_operator_to_kernel(sub, out, argnum=argnum)
         return out
     return None
+
+
+def _select_output_kernel(op: SelectOutput, kernel: CovarianceFunction, argnum: int):
+    """Output selection on one slot of a multi-output kernel
+    (``dispatch.py:312-331`` of the JAX package)."""
+    idx = op.idx
+    if isinstance(kernel, IndependentMultiOutputCovarianceFunction) and len(idx) == 1:
+        other_shape = kernel.output_shape_0 if argnum == 1 else kernel.output_shape_1
+        if other_shape == ():
+            return kernel.covfuncs[idx[0]]
+        # Diagonal structure: selecting component i on one slot leaves a
+        # stacked kernel whose only nonzero entry is k_i at position i, so
+        # further operators reach the component's closed forms.
+        entries = [
+            kernel.covfuncs[idx[0]] if j == idx[0] else ZeroCovarianceFunction(kernel.input_shape)
+            for j in range(len(kernel.covfuncs))
+        ]
+        return StackCovarianceFunction(*entries, stack_argnum=1 - argnum)
+    return _SelectedOutputKernel(kernel, idx, argnum)
+
+
+class _SelectedOutputKernel(CovarianceFunction):
+    """Output-component selection on one slot of any kernel."""
+
+    def __init__(self, kernel: CovarianceFunction, idx, argnum: int):
+        self._kernel = kernel
+        self._idx = tuple(idx)
+        self._argnum = argnum
+        out0 = () if argnum == 0 else kernel.output_shape_0
+        out1 = () if argnum == 1 else kernel.output_shape_1
+        super().__init__(kernel.input_shape, out0, out1)
+
+    def _evaluate(self, x0, x1):
+        vals = self._kernel._evaluate(x0, x1)
+        if self._argnum == 0:  # the output_shape_0 axes, just before output_shape_1's
+            return vals[(Ellipsis,) + self._idx + (slice(None),) * self._kernel.output_ndim_1]
+        return vals[(Ellipsis,) + self._idx]  # the trailing output_shape_1 axes

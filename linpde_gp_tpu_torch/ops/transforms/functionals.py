@@ -4,7 +4,8 @@ Port of ``linpde_gp_tpu/ops/transforms/functionals.py``
 (``apply_functional``, ``:36``): the routes for covariance functions,
 process-vector cross-covariances, GPs and their posteriors, deterministic
 processes and functions (``Zero``, scaled, sum and composite functionals
-symbolically).  The weak-form and Lebesgue-integral routes (``:42-44``,
+symbolically; a composite's operator reaches any function through
+``dispatch.apply_operator_to_function``).  The weak-form and Lebesgue-integral routes (``:42-44``,
 ``:118-149`` there) come with ROADMAP item 9c, with their functionals.
 """
 

@@ -94,8 +94,18 @@ def test_gram_matrix_matches_jax(case):
 
 
 def test_gram_matrix_without_a_spec_raises():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        gram_matrix(kernels.Matern((), nu=1.2), torch.zeros(3, dtype=torch.float64), mode="f64")
+    """A kernel without a sum-of-products spec (a general-nu Matérn) no
+    longer raises: ``gram_matrix`` evaluates it by its own ``_evaluate``, in
+    float64, as the JAX package's ``gram_matrix`` falls back to
+    ``kernel.matrix``, and returns the mode's dtype."""
+    k, kj = kernels.Matern((), nu=1.2, lengthscales=0.7), lgt.kernels.Matern((), nu=1.2, lengthscales=0.7)
+    X0 = np.random.default_rng(13).uniform(-1, 1, 9)
+    X1 = np.random.default_rng(14).uniform(-1, 1, 7)
+    want = np.asarray(jax_gram_matrix(kj, jnp.asarray(X0), jnp.asarray(X1)))
+    got = gram_matrix(k, torch.from_numpy(X0), torch.from_numpy(X1), "f64")
+    assert got.dtype == torch.float64 and got.shape == (9, 7)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-14)
+    assert gram_matrix(k, torch.from_numpy(X0), mode="ff").dtype == torch.float32
 
 
 def _dense_joint(prior, L, X, Y, noise, Xa, Ya, anoise, xq):

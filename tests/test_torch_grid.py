@@ -7,7 +7,12 @@ package (on the CPU, float64 unless a mode says otherwise).
   of ``matrix(X)``; the dense fallback off the grid.
 - The C-order flattening convention of ``TensorProductGrid``.
 - ``test_regressor_engages_kron_ff_on_grids`` (port of the JAX test of that
-  name): ``_kron_ff`` in mode ff, a structured operator in f64 and plain.
+  name): the structured operator in every mode (float64 in ff and f64,
+  float32 in plain); the JAX package's ff grid matvec, ``KronFFMatvec``, is
+  no longer the regressor's (its float32 chunk sums set a floor on the grid
+  variance, PERF.md).
+- Mode ff's grid CG operator is the float64 Kronecker operator's ff split,
+  and its variance on an anchored 24 x 16 grid matches f64's.
 - A 24 x 16 heat grid with 24 anchors, f64, tol 1e-10: the mean within 1e-6
   of max |mean| of the JAX regressor and of the port's own K2 route on the
   same points passed as a plain tensor, ``var`` within 1e-5 of max var.
@@ -31,7 +36,8 @@ from linpde_gp_tpu_torch.config import config
 from linpde_gp_tpu_torch.models.domains import TensorProductGrid, grid_factors
 from linpde_gp_tpu_torch.models.iterative import IterativeGPRegressor
 from linpde_gp_tpu_torch.ops import diffops
-from linpde_gp_tpu_torch.ops.kron_ff import KronFFMatvec
+from linpde_gp_tpu_torch.ops.ff import ff_split
+from linpde_gp_tpu_torch.ops.kron_ff import kron_linop
 from linpde_gp_tpu_torch.ops.linalg.linops import Dense, Kronecker, SumOperator
 from linpde_gp_tpu_torch.ops.transforms import apply_operator_to_kernel
 
@@ -117,8 +123,9 @@ def _heat_priors():
 @pytest.mark.parametrize("mode", ["ff", "f64", "plain"])
 def test_regressor_engages_kron_ff_on_grids(mode):
     """tests/test_kron_ff.py::test_regressor_engages_kron_ff_on_grids: the
-    regressor on a 24 x 16 grid takes the compensated matvec in mode ff and
-    the structured operator in f64 and plain; the ff solve converges."""
+    regressor on a 24 x 16 grid takes the structured operator in every mode
+    (in ff the float64 one, split into the CG's pair, where the JAX package
+    takes its compensated matvec); the ff solve converges."""
     port, _ = _heat_priors()
     tg = np.linspace(1e-3, 5.0, 24).astype(np.float32)
     xg = np.linspace(-0.9, 0.9, 16).astype(np.float32)
@@ -128,7 +135,7 @@ def test_regressor_engages_kron_ff_on_grids(mode):
     )
     assert isinstance(reg._gram_linop, SumOperator) and reg._banded is None
     assert reg._gram_linop.dtype == (torch.float32 if mode == "plain" else torch.float64)
-    assert isinstance(reg._kron_ff, KronFFMatvec) if mode == "ff" else reg._kron_ff is None
+    assert not hasattr(reg, "_kron_ff")
     rng = np.random.default_rng(1)
     reg.refit(rng.standard_normal(24 * 16).astype(np.float32))
     assert torch.isfinite(reg.representer_weights).all()
@@ -181,7 +188,7 @@ def test_anchored_grid_f64_matches_the_k2_route(anchored_grid):
     port, _ = _heat_priors()
     X = torch.from_numpy(np.asarray(TensorProductGrid(tg, xg)).reshape(-1, 2))
     reg = IterativeGPRegressor(port, X, Y, L=diffops.HeatOperator((2,), alpha=0.1), mode="f64", **kw)
-    assert reg._gram_linop is None and reg._kron_ff is None
+    assert reg._gram_linop is None
     np.testing.assert_allclose(reg.mean(xq).numpy(), g["mean"], rtol=0, atol=1e-6 * np.abs(g["mean"]).max())
     np.testing.assert_allclose(reg.var(xq).numpy(), g["var"], rtol=0, atol=1e-5 * g["var"].max())
 
@@ -203,7 +210,6 @@ def test_grid_refit_and_pickle_roundtrip(mode):
     np.testing.assert_allclose(refit.numpy(), fresh.numpy(), rtol=0, atol=1e-9 * fresh.abs().max().item())
     restored = pickle.loads(pickle.dumps(reg))
     assert type(restored._gram_linop) is type(reg._gram_linop)
-    assert (restored._kron_ff is None) == (reg._kron_ff is None)
     assert torch.equal(restored.representer_weights, refit)
     assert torch.equal(restored.mean(xq), reg.mean(xq))
     np.testing.assert_allclose(restored.refit(Y).representer_weights.numpy(), w.numpy(), rtol=0,
@@ -228,9 +234,39 @@ def test_anchored_three_factor_grid_ff_matches_f64():
     kw = dict(L=diffops.HeatOperator((3,), alpha=0.1), noise_variance=1e-3, tol=1e-10, precond_rank=32,
               maxiter=2000, anchor_X=Xa, anchor_Y=np.cos(Xa).prod(-1), anchor_noise=1e-6)
     regs = {mode: IterativeGPRegressor(prior, grid, Y, mode=mode, **kw) for mode in ("ff", "f64")}
-    assert regs["ff"]._kron_ff is None and isinstance(regs["ff"]._gram_linop, SumOperator)
+    assert isinstance(regs["ff"]._gram_linop, SumOperator)
     mean, var = ({m: r.mean(xq).double().numpy() for m, r in regs.items()},
                  {m: r.var(xq).double().numpy() for m, r in regs.items()})
     assert regs["ff"].solve_info[1] <= 1e-10
     np.testing.assert_allclose(mean["ff"], mean["f64"], rtol=0, atol=1e-6 * np.abs(mean["f64"]).max())
     np.testing.assert_allclose(var["ff"], var["f64"], rtol=0, atol=1e-5 * var["f64"].max())
+
+
+def test_ff_grid_cg_is_the_f64_operator_split():
+    """The repair of the grid's ff variance floor: mode ff's CG operator on
+    a 2-factor grid is the float64 Kronecker operator's ff split (built here
+    from the spec and the float32-rounded factors), and ff's variance on the
+    anchored 24 x 16 grid at CG tol 1e-10 is f64's within 1e-7 of max var
+    (on the CPU: 8.6e-11).  The JAX package's route, the compensated
+    KronFFMatvec, reads 4.3e-6 here on the CPU (and 1.6e-4 on the 500 x 200
+    grid on an H100), so the unfixed regressor fails this test."""
+    tg, xg, Y, xq, kw = _anchored_grid_problem()
+    # float32 points, so that both modes see the same ones.
+    tg, xg, xq = tg.astype(np.float32), xg.astype(np.float32), xq.astype(np.float32)
+    port, _ = _heat_priors()
+    H = diffops.HeatOperator((2,), alpha=0.1)
+    grid = TensorProductGrid(tg, xg)
+    regs = {mode: IterativeGPRegressor(port, grid, Y, L=H, mode=mode, **kw) for mode in ("ff", "f64")}
+    reg = regs["ff"]
+    factors = [np.asarray(g).astype(np.float64) for g in grid_factors(grid)]
+    f64 = kron_linop(reg._obs_spec, factors, device="cpu")
+    v = torch.from_numpy(np.random.default_rng(9).standard_normal((24 * 16, 3)))
+    v_ff = ff_split(v)
+    ref = f64 @ (v_ff[0].double() + v_ff[1].double())
+    hi, lo = reg._gram_matvec_raw(v_ff)
+    want = ff_split(ref)
+    assert torch.equal(hi, want[0]) and torch.equal(lo, want[1])
+    assert ((hi.double() + lo.double() - ref).norm() / ref.norm()).item() <= 1e-15
+    var = {mode: r.var(xq, tol=1e-10).double() for mode, r in regs.items()}
+    err = ((var["ff"] - var["f64"]).abs().max() / var["f64"].max()).item()
+    assert err <= 1e-7, err

@@ -151,13 +151,21 @@ def test_prior_and_operator_equal_the_specs():
 
 def test_prior_checks():
     from linpde_gp_tpu_torch import GaussianProcess
+    from linpde_gp_tpu_torch.models import functions as lgtt_functions
     from linpde_gp_tpu_torch.models.functions import Polynomial
     from linpde_gp_tpu_torch.ops import kernels
 
     X, Y, _ = _problem(n=32)
+    # A non-zero prior mean is accepted (tests/test_torch_prior_mean.py holds
+    # it to the JAX regressor); a multi-output prior is not.
     gp = GaussianProcess(Polynomial([1.0, 2.0]), kernels.Matern((), nu=1.5))
-    with pytest.raises(NotImplementedError, match="Zero prior mean"):
-        IterativeGPRegressor(gp, X[:, 0], Y, mode="f64", device="cpu")
+    reg = IterativeGPRegressor(gp, X[:, 0], Y, mode="f64", device="cpu", noise_variance=1e-3, tol=1e-10)
+    assert torch.isfinite(reg.mean(X[:4, 0])).all()
+    multi = GaussianProcess(
+        lgtt_functions.Zero((), (2,)), kernels.IndependentMultiOutputCovarianceFunction(kernels.Matern(()), kernels.Matern(()))
+    )
+    with pytest.raises(ValueError, match="scalar outputs"):
+        IterativeGPRegressor(multi, X[:, 0], Y, mode="f64", device="cpu")
     with pytest.raises(ValueError, match="mode"):
         IterativeGPRegressor(_heat_prior(), X, Y, device="cpu")
 

@@ -44,6 +44,8 @@ _MODULES = [
     "linpde_gp_tpu_torch.ops.kernels.stationary",
     "linpde_gp_tpu_torch.ops.kernels.tensor_product",
     "linpde_gp_tpu_torch.ops.kernels.wendland",
+    "linpde_gp_tpu_torch.ops.kernels.bessel",
+    "linpde_gp_tpu_torch.ops.kernels.multioutput",
     "linpde_gp_tpu_torch.ops.diffops",
     "linpde_gp_tpu_torch.ops.diffops.coefficients",
     "linpde_gp_tpu_torch.ops.diffops.linfuncop",
@@ -52,6 +54,8 @@ _MODULES = [
     "linpde_gp_tpu_torch.ops.transforms.univariate",
     "linpde_gp_tpu_torch.ops.transforms.product",
     "linpde_gp_tpu_torch.ops.transforms.dispatch",
+    "linpde_gp_tpu_torch.ops.transforms.autodiff",
+    "linpde_gp_tpu_torch.ops.transforms.radial",
     "linpde_gp_tpu_torch.utils.shapes",
     "linpde_gp_tpu_torch.utils.serialization",
     "linpde_gp_tpu_torch.models.functions",

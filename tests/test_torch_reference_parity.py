@@ -5,9 +5,11 @@ Ports ``test_parity_poisson_1d``, ``_heat_1d`` and ``_poisson_2d`` of
 ``GaussianProcess.condition_on_observations`` (float64 on the CPU,
 through the kernels' plain versions) on the same configs, held to the
 same ``tests/fixtures/reference_parity.json`` at the same ``TOL = 1e-6``,
-and to the JAX posterior on the same inputs at the same tolerance.
-``poisson_fem`` and ``poisson_inverse_rhs`` need FEM functionals and
-non-zero functions (ROADMAP items 9c and 9b).
+and to the JAX posterior on the same inputs at the same tolerance.  Also
+``test_parity_poisson_inverse_rhs``: the inverse right-hand-side problem,
+whose priors have zero means; its ``f`` posterior takes the pushforward
+``-Laplacian(u_post)`` as noise.  ``poisson_fem`` needs the FEM
+functionals (ROADMAP item 9c).
 """
 
 import json
@@ -113,3 +115,46 @@ def test_parity(name):
 
     jpost = CASES[name](jlgt, jdiffops)
     _check(mean.numpy(), std.numpy(), np.asarray(jpost.mean(xq)), np.asarray(jpost.std(xq)))
+
+
+def _poisson_inverse_rhs(pkg, dops, xp):
+    """``test_reference_parity.py::test_parity_poisson_inverse_rhs``'s
+    problem: ``(u_post, f_post)``; ``xp`` is the array module of ``pkg``."""
+    mu_c, sig = 0.4, 0.3
+
+    def b(n, var=NOISE):
+        return pkg.Normal(np.zeros(n), var * np.eye(n))
+
+    u_true = pkg.functions.LambdaFunction(lambda x: xp.exp(-0.5 / sig**2 * (x - mu_c) ** 2), ())
+    u_prior = pkg.GaussianProcess(pkg.functions.Zero(()), 1.0 * pkg.kernels.ExpQuad((), lengthscales=0.5))
+    f_prior = pkg.GaussianProcess(pkg.functions.Zero(()), 10.0**2 * pkg.kernels.ExpQuad((), lengthscales=0.25))
+    D = -1.0 * dops.Laplacian(())
+    X_bc = np.asarray([-1.0, 1.0])
+    X_meas = np.linspace(-1.0, 1.0, 12)[1:-1]
+    u_bc = u_prior.condition_on_observations(np.asarray(u_true(X_bc)), X=X_bc, b=b(2))
+    u_bc_meas = u_bc.condition_on_observations(np.asarray(u_true(X_meas)), X=X_meas, b=b(10, 0.1**2))
+    u_post = u_bc_meas.condition_on_observations(
+        np.zeros(10), X=X_meas, L=D, b=(-1.0 * f_prior(X_meas)) + pkg.Normal(np.zeros(10), NOISE * np.eye(10))
+    )
+    X_pde = np.linspace(-1.0, 1.0, 10)
+    Lu = D(u_bc_meas)(X_pde)
+    f_post = f_prior.condition_on_observations(
+        np.zeros(10), X=X_pde, b=(-1.0 * Lu) + pkg.Normal(np.zeros(10), NOISE * np.eye(10))
+    )
+    return u_post, f_post
+
+
+def test_parity_poisson_inverse_rhs():
+    """The port against the fixture's u and f posteriors and against the
+    JAX posteriors, at TOL."""
+    import jax.numpy as jnp
+
+    fx = FIXTURES["poisson_inverse_rhs"]
+    xq = np.asarray(fx["xq"])
+    posts = _poisson_inverse_rhs(lgt, diffops, torch)
+    jposts = _poisson_inverse_rhs(jlgt, jdiffops, jnp)
+    for post, jpost, key in zip(posts, jposts, ("u", "f")):
+        assert post.device == torch.device("cpu")
+        mean, std = post.mean(xq).numpy(), post.std(xq).numpy()
+        _check(mean, std, np.asarray(fx[f"{key}_mean"]), np.asarray(fx[f"{key}_std"]))
+        _check(mean, std, np.asarray(jpost.mean(xq)), np.asarray(jpost.std(xq)))

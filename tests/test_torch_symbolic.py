@@ -240,17 +240,27 @@ def test_matrix_matches_jax():
 
 
 def test_no_silent_fallback():
-    """Where the JAX package falls back to autodiff or Bessel evaluation,
-    the port raises, naming the roadmap item."""
-    k = port_kernels.Matern((2,), nu=1.5, lengthscales=1.0)  # isotropic: not a product
-    L = port_diffops.Laplacian((2,))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        port_transforms.apply_operator_to_kernel(L, k, argnum=1)
-    over = port_kernels.Matern((), nu=1.5)  # 4th derivative of a C^2 kernel
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        _transform(PORT, over, port_diffops.Derivative(2), port_diffops.Derivative(2))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        port_kernels.Matern((), nu=1.2)(torch.zeros(3), torch.ones(3))
+    """Where the JAX package falls back to radial closed forms, autodiff or
+    Bessel evaluation, the port takes the same route (the kernel classes
+    match) and gives the JAX package's values off the diagonal; it never
+    returns a different kernel in their place."""
+    rng = np.random.default_rng(17)
+    x0, x1 = rng.uniform(-1, 1, (5, 2)), rng.uniform(-1, 1, (5, 2))
+
+    def iso(ns):  # isotropic: not a product
+        return ns.T.apply_operator_to_kernel(ns.D.Laplacian((2,)), ns.K.Matern((2,), nu=1.5, lengthscales=1.0), argnum=1)
+
+    def over(ns):  # 4th derivative of a C^2 kernel
+        return _transform(ns, ns.K.Matern((), nu=1.5), ns.D.Derivative(2), ns.D.Derivative(2))
+
+    def general(ns):
+        return ns.K.Matern((), nu=1.2)
+
+    for build, a, b in ((iso, x0, x1), (over, x0[:, 0], x1[:, 0]), (general, x0[:, 0], x1[:, 0])):
+        kp, kj = build(PORT), build(JAX)
+        assert type(kp).__name__ == type(kj).__name__, (type(kp), type(kj))
+        got = kp(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+        np.testing.assert_allclose(got, np.asarray(kj(jnp.asarray(a), jnp.asarray(b))), rtol=1e-12, atol=1e-12)
     assert kernel_term_specs(port_kernels.Matern((), nu=1.2)) is None
 
 
