@@ -165,21 +165,67 @@ Phases, each printed as it finishes:
               float32 and KronFFMatvec, with each one's error against the
               f64 operator and its bound), beside K2's at 1e5^2 from the
               timing phase.
+10. fem     - GP-FEM (``experiments/poisson_fem.py:15-65``): -u'' = 2 on
+              [-1, 1], u(-1) = 0, u(1) = 1, a free-boundary trial and a
+              zero-boundary test hat basis, the Matern(nu = 1.5, l = 1) prior
+              conditioned on the boundary values and on ``weak_form(test)
+              (trial) @ trial.l2_projection()`` (the exact hat-projection
+              crosscov, its Gram block by Gauss-Legendre per element), then
+              ``trial_proj(post)`` and a ``ParametricGaussianProcess`` on it.
+              At 5 elements with the fixtures' noise: mean and std within
+              1e-6 of ``tests/fixtures/reference_parity.json["poisson_fem"]``.
+              At 63 elements, noiseless, the launch counts set to 0 before
+              the conditioning and read after the evaluations: mean and std
+              of the posterior and of the parametric GP at 8,192 queries,
+              finite and on the card; K1 and K2 launched; RMSE vs the exact
+              solution <= 1e-3; the projected mean vs the classical FEM
+              solution <= 1e-3; the mean vs the port's CPU path within 1e-9
+              of max |mean|; the exact double-projection Gram on 4 middle
+              rows vs its per-cell Gauss-Legendre oracle (the inner cell
+              split at the kink) <= 1e-8 per entry.  Then a logged sweep over
+              127, 255 and 1,023 elements: that Gram's error, the Galerkin
+              Gram's eigenvalue range, whether conditioning raised
+              ``LinAlgError`` (allowed: the closed forms' differences cancel
+              as the elements shrink, ROADMAP Queue 3); a NaN fails.
+11. integral - ``LebesgueIntegral(Box([[0, 5], [-1, 1]]))`` at the default
+              64 x 4 Gauss-Legendre panels per axis (65,536 nodes) on the
+              dense IBVP posterior (the dense phase's problem: N = 32,768,
+              96 + 2 x 48 anchors), the launch counts set to 0 before
+              ``I(prior)`` and read after the new mean: ``I(prior)`` and
+              ``I(post)`` (K1 over blocks of nodes), then the posterior
+              conditioned on y, the integral of u* over the box, with noise 1e-10 and its
+              mean at 8,192 queries (the integral term by K2, 8,192 x
+              65,536).  Checked: ``I(post).mean`` vs the closed form
+              (4/pi)(1 - e^{-5c})/c, c = 0.1 pi^2/4, within 1e-4 and vs the
+              same quadrature of the posterior mean (K2 at the nodes) within
+              1e-10; 0 <= var <= prior var; the scalar Gaussian update (mean
+              within 1e-8 of |y|, variance within 1e-11 of the prior
+              variance); the new mean's RMSE vs u* <= 4e-4; the phase's K1 and
+              K2 calls against their plain versions (as the dense phase);
+              peak device memory < 40 GB; a small copy (N = 512 + 24
+              anchors, order 16 x 2) against the port's CPU path within 1e-10
+              (variances of the prior variance); the exact 1-D Lebesgue
+              crosscov of 1.7 Matern, nu in {0.5, 1.5, 2.5, 3.5}, at 1e5
+              points against the CPU within 1e-13.  Logged: the seconds of
+              I(prior), I(post), the conditioning and the mean, the launches,
+              the peak GB.
 
 The line before the last is a JSON object with one entry per kernel: its
 ff time at the main path's shape beside its plain version's, its bound
 (``bound_ms``: the larger of the operations the work needs, from the
 generator's per-pair counts, over the H100 SXM's peak rate of their
 pipe, and its bytes over the memory rate; :data:`PEAK`) and its launches
-in the main, dense, mean and grid phases (``launches_by_path``: the main
-phase's runs, the dense engine's own work, the mean path's runs and the
-grid path's runs, apart).  The last line is ``{"ok": true, "device":
+in the main, dense, mean, grid, fem and integral phases
+(``launches_by_path``: the main phase's runs, the dense engine's own work,
+the mean path's runs, the grid path's runs, the checked GP-FEM run and the
+integral route, apart).  The last line is ``{"ok": true, "device":
 {...}}``, printed only if every phase passed.  The script never imports JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import re
 import subprocess
@@ -189,7 +235,7 @@ import traceback
 
 import numpy as np
 
-PHASES = ("device", "build", "kernels", "timing", "main", "dense", "mean", "symbolic", "grid")
+PHASES = ("device", "build", "kernels", "timing", "main", "dense", "mean", "symbolic", "grid", "fem", "integral")
 # name -> (TPU kernel(s) it replaces, label, source)
 KERNELS = {
     "gram": ("linpde_gp_tpu/ops/pallas_gram.py:277", "K1", "linpde_gp_tpu_torch/csrc/gram.cuh"),
@@ -510,6 +556,7 @@ def path_specs() -> dict:
     out["heat_prior"] = kernel_term_specs(prior.cov)
     out["heat_Lk"] = kernel_term_specs(apply_operator_to_kernel(H, prior.cov, argnum=0))
     out.update({f"wendland_{k}": v for k, v in wendland_specs().items()})
+    out["fem_prior"] = kernel_term_specs(fem_setup(5, "cpu")["prior"].cov)
     return out
 
 
@@ -1493,8 +1540,8 @@ def dense_spans() -> "Spans":
 
 def _check_dense_kernels(spans, tag, on_card) -> dict:
     """The dense engine's kernels against their plain versions on the same
-    operands: the largest K1 block (launched again and timed with CUDA
-    events beside the plain version; the relaunch must give the engine's
+    operands: the largest K1 block (launched again, after an untimed launch,
+    and timed with CUDA events beside the plain version; the relaunch must give the engine's
     output exactly on a strided sample) within 1e-12 of its largest entry,
     k(0) of its kernel; every K2 call of the mean within 1e-12 of its row's
     sum_j |k_ij v_j|."""
@@ -1505,6 +1552,9 @@ def _check_dense_kernels(spans, tag, on_card) -> dict:
     args, shape, sample = max(spans.kept["k1_gram_blocks"], key=lambda k: k[1][0] * k[1][1])
     terms, X0, X1, mode = args
     if on_card:
+        # One untimed launch of each first: after empty_cache the first takes
+        # its output from cudaMalloc.
+        gram(terms, X0, X1, mode), gram_plain(terms, X0, X1, mode)
         k1_ms, K = timed(lambda: gram(terms, X0, X1, mode), reps=3)
         plain_ms, P = timed(lambda: gram_plain(terms, X0, X1, mode))
     else:
@@ -1534,6 +1584,20 @@ def _check_dense_kernels(spans, tag, on_card) -> dict:
               "sum_j |k_ij v_j| <= 1e-12")
     out["k2"] = k2
     return out
+
+
+def condition_dense_ibvp(prior, H, X, Xa, Ya, cuts, noise, anchor_noise):
+    """The dense IBVP posterior: ``prior`` conditioned on the anchors
+    ``Xa[cuts[i]:cuts[i + 1]]`` one set at a time (noise ``anchor_noise``),
+    then on ``H u = 0`` at ``X`` (noise ``noise``)."""
+    import linpde_gp_tpu_torch as lgt
+
+    post = prior
+    for a, b in zip(cuts[:-1], cuts[1:]):
+        m = b - a
+        post = post.condition_on_observations(Ya[a:b], X=Xa[a:b], b=lgt.Normal(np.zeros(m), anchor_noise * np.ones(m)))
+    n = X.shape[0]
+    return post.condition_on_observations(np.zeros(n), X=X, L=H, b=lgt.Normal(np.zeros(n), noise * np.ones(n)))
 
 
 def run_dense_path(n, nq, *, device="cuda", n_ic=96, n_bc=48, noise_rel=1e-3, anchor_noise=1e-5, var_q=256,
@@ -1580,12 +1644,7 @@ def run_dense_path(n, nq, *, device="cuda", n_ic=96, n_bc=48, noise_rel=1e-3, an
     _cuda.reset_launches()
     with spans:
         t0 = time.perf_counter()
-        post = prior
-        for a, b in zip(cuts[:-1], cuts[1:]):
-            m = b - a
-            post = post.condition_on_observations(Ya[a:b], X=Xa[a:b],
-                                                  b=lgt.Normal(np.zeros(m), anchor_noise * np.ones(m)))
-        post = post.condition_on_observations(np.zeros(n), X=X, L=H, b=lgt.Normal(np.zeros(n), noise * np.ones(n)))
+        post = condition_dense_ibvp(prior, H, X, Xa, Ya, cuts, noise, anchor_noise)
         sync()
         out["condition_s"] = time.perf_counter() - t0
         out["stages_s"] = {k: v for k, v in spans.seconds.items() if k != "k2_calls"}
@@ -2410,6 +2469,456 @@ def phase_grid(timing=None, **kw) -> dict:
     return total
 
 
+# -- FEM and integral functionals ------------------------------------------------
+
+#: The FEM phase: the elements of its checked run and of its logged sweep.
+FEM_ELEMENTS = 63
+FEM_SWEEP = (127, 255, 1023)
+#: Rows of the double-projection Gram held to the per-cell oracle, about the
+#: middle of the basis.
+FEM_ORACLE_ROWS = 4
+#: The integral phase: the dense IBVP cell's space-time box, the noise of the
+#: integral observation, and the small copy held to the CPU path (PDE points,
+#: IC anchors, BC anchors per side, Gauss-Legendre order and panels).
+INTEGRAL_BOX = [[0.0, 5.0], [-1.0, 1.0]]
+INTEGRAL_NOISE = 1e-10
+INTEGRAL_SMALL = dict(n=512, n_ic=12, n_bc=6, order=16, panels=2)
+
+
+@contextlib.contextmanager
+def default_device(device):
+    """``config.device`` is ``device`` inside the block: the functionals'
+    nodes and weights, their normalizers and the stiffness matrices land
+    there."""
+    from linpde_gp_tpu_torch.config import config
+
+    saved = config.device
+    config.device = str(device)
+    try:
+        yield
+    finally:
+        config.device = saved
+
+
+@contextlib.contextmanager
+def quadrature(order, panels):
+    from linpde_gp_tpu_torch.config import config
+
+    saved = config.quadrature_order, config.quadrature_panels
+    config.set(quadrature_order=order, quadrature_panels=panels)
+    try:
+        yield
+    finally:
+        config.set(quadrature_order=saved[0], quadrature_panels=saved[1])
+
+
+def fem_setup(n_el, device="cuda"):
+    """``experiments/poisson_fem.py:15-65``'s GP-FEM Poisson problem with
+    ``n_el`` elements on ``device``: ``-u'' = 2`` on [-1, 1], u(-1) = 0,
+    u(1) = 1; a free-boundary trial and a zero-boundary test hat basis on
+    ``linspace(-1, 1, n_el + 2)``; the Galerkin functional ``L =
+    weak_form(test)(trial) @ trial.l2_projection()`` and the test basis's
+    load vector ``rhs`` of the right-hand side; the prior Matérn(nu = 1.5,
+    l = 1)."""
+    import linpde_gp_tpu_torch as lgt
+
+    with default_device(device):
+        bvp = lgt.problems.PoissonEquationDirichletProblem(
+            domain=lgt.domains.asdomain([-1.0, 1.0]), rhs=lgt.functions.Constant((), 2.0), boundary_values=(0.0, 1.0)
+        )
+        grid = np.linspace(-1.0, 1.0, n_el + 2)
+        trial = lgt.functions.UnivariateLinearInterpolationBasis(grid, zero_boundary=False)
+        test = lgt.functions.UnivariateLinearInterpolationBasis(grid, zero_boundary=True)
+        trial_proj = trial.l2_projection()
+        A = bvp.pde.diffop.weak_form(test)(trial)
+        rhs = test.l2_projection(normalized=False)(bvp.pde.rhs)
+        prior = lgt.GaussianProcess(lgt.functions.Zero(()), 1.0 * lgt.kernels.Matern((), nu=1.5, lengthscales=1.0),
+                                    device=device)
+    X_bc, Y_bc = lgt.problems.get_1d_dirichlet_boundary_observations(bvp.boundary_conditions)
+    return dict(bvp=bvp, trial=trial, trial_proj=trial_proj, A=A, rhs=rhs, L=A @ trial_proj, prior=prior,
+                X_bc=np.asarray(X_bc, np.float64), Y_bc=np.asarray(Y_bc, np.float64), device=device)
+
+
+def fem_condition(p, noise=None):
+    """The prior of :func:`fem_setup`'s problem ``p`` conditioned on the
+    boundary values, then on ``L u = rhs`` (``noise``: the variance of every
+    observation; ``None``: noiseless, as the experiment)."""
+    import linpde_gp_tpu_torch as lgt
+
+    def b(m):
+        return None if noise is None else lgt.Normal(np.zeros(m), noise * np.ones(m))
+
+    with default_device(p["device"]):
+        post = p["prior"].condition_on_observations(p["Y_bc"], X=p["X_bc"], b=b(2))
+        return post.condition_on_observations(p["rhs"], L=p["L"], b=b(p["rhs"].shape[0]))
+
+
+def classical_fem(A, rhs, Y_bc):
+    """The classical FEM nodal values (``poisson_fem.py:55-63``): the
+    interior stiffness system solved with the boundary values moved right."""
+    A = A.todense().double().cpu().numpy()
+    rhs = rhs.double().cpu().numpy()
+    w_int = np.linalg.solve(A[:, 1:-1], rhs - A[:, 0] * Y_bc[0] - A[:, -1] * Y_bc[1])
+    return np.concatenate([[Y_bc[0]], w_int, [Y_bc[1]]])
+
+
+def hat_gram_oracle(basis, rows, kernel, device, order=20):
+    """The plain version of the hat x hat double-projection Gram, rows
+    ``rows`` and every column: ``G_ij = \\int\\int w_i(s) w_j(t) k(s, t)``
+    by ``order``-point Gauss-Legendre on every cell of the grid, the inner
+    cell that holds ``s`` split at ``s`` (the kink of k there), with
+    ``kernel``'s own evaluation, float64 on ``device``."""
+    import torch
+
+    cells = basis.grid if basis.zero_boundary else basis.grid[1:-1]
+    lo, hi = cells[:-1], cells[1:]
+    gx, gw = np.polynomial.legendre.leggauss(order)
+
+    def gl(a, b):  # nodes and weights on [a, b], elementwise: (..., order)
+        a, b = np.asarray(a)[..., None], np.asarray(b)[..., None]
+        return 0.5 * (b - a) * gx + 0.5 * (a + b), 0.5 * (b - a) * gw
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float64), device=device)
+
+    T0, W0 = gl(lo, hi)
+    cell_of = np.repeat(np.arange(lo.size), order)
+    T0t, W0t = t(T0.reshape(-1)), t(W0.reshape(-1))
+    phi0 = basis(T0t)  # (cells * order, m)
+    out = []
+    for i in rows:
+        a_i, b_i = basis.support_bounds(i)
+        own_cells = np.flatnonzero((lo >= a_i) & (hi <= b_i))
+        S, WS = gl(lo[own_cells], hi[own_cells])
+        own = np.repeat(own_cells, order)
+        S, WS = S.reshape(-1), WS.reshape(-1)
+        St = t(S)
+        K0 = kernel(St[:, None], T0t[None, :]) * W0t
+        K0 = K0.masked_fill(t(cell_of[None, :] == own[:, None]).bool(), 0.0)
+        TL, WL = gl(lo[own], S)
+        TR, WR = gl(S, hi[own])
+        T1, W1 = t(np.concatenate([TL, TR], 1)), t(np.concatenate([WL, WR], 1))
+        inner = K0 @ phi0 + torch.einsum("sq,sqm->sm", kernel(St[:, None], T1) * W1, basis(T1))
+        out.append((t(WS) * basis.eval_elem(i, St)) @ inner)
+    return torch.stack(out)
+
+
+def _double_projection_error(trial, device):
+    """The exact double-projection Gram of ``trial`` (nu = 1.5, l = 1) on its
+    middle rows against :func:`hat_gram_oracle`: the largest relative error
+    per entry, and whether both are finite."""
+    import torch
+
+    import linpde_gp_tpu_torch as lgt
+    from linpde_gp_tpu_torch.ops.transforms.integrals_exact import matern_hat_double_projection_gram
+
+    m = len(trial)
+    rows = list(range(m // 2 - FEM_ORACLE_ROWS // 2, m // 2 - FEM_ORACLE_ROWS // 2 + FEM_ORACLE_ROWS))
+    with default_device(device):
+        G = matern_hat_double_projection_gram(1.5, 1.0, trial, trial)
+    oracle = hat_gram_oracle(trial, rows, lgt.kernels.Matern((), nu=1.5, lengthscales=1.0), device)
+    finite = bool(torch.isfinite(G).all()) and bool(torch.isfinite(oracle).all())
+    return ((G[rows] - oracle).abs() / oracle.abs()).max().item(), finite, str(G.device)
+
+
+def phase_fem(nq=8192, device="cuda") -> dict:
+    """GP-FEM on the card (:func:`fem_setup`, :func:`fem_condition`): the reference-parity
+    fixture at 5 elements with its noise (mean and std within 1e-6), the
+    checked run at :data:`FEM_ELEMENTS` (launches counted; mean and std of
+    the posterior and of the parametric GP on its trial projection at ``nq``
+    queries; RMSE vs u*, the projection vs the classical FEM, the card vs
+    the CPU path, the exact double-projection Gram vs its per-cell oracle),
+    then the logged sweep over :data:`FEM_SWEEP` (the Gram's error, the
+    Galerkin Gram's eigenvalue range, whether conditioning raised
+    ``LinAlgError``; a NaN fails).  Returns the checked run's launches."""
+    with default_device(device):
+        return _phase_fem(nq, device)
+
+
+def _phase_fem(nq, device):
+    import os
+
+    import torch
+
+    import linpde_gp_tpu_torch as lgt
+    from linpde_gp_tpu_torch.ops import _cuda
+    from linpde_gp_tpu_torch.ops.crosscov.base import apply_functional_to_crosscov
+    from linpde_gp_tpu_torch.ops.transforms.functionals import apply_functional
+
+    out = {}
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures", "reference_parity.json")
+    with open(path) as fh:
+        fixtures = json.load(fh)
+    fx = fixtures["poisson_fem"]
+    xq5 = np.asarray(fx["xq"])
+    post5 = fem_condition(fem_setup(5, device), noise=fixtures["noise"])
+    mean5, std5 = post5.mean(xq5).cpu().numpy(), post5.std(xq5).cpu().numpy()
+    ref_mean, ref_std = np.asarray(fx["mean"]), np.asarray(fx["std"])
+    scale = max(np.abs(ref_mean).max(), 1.0)
+    e_mean5 = float(np.abs(mean5 - ref_mean).max() / scale)
+    e_std5 = float(np.max((np.abs(std5 - ref_std) - 1e-6 * np.abs(ref_std)) / scale))
+    out["fixture"] = dict(mean_err=e_mean5, std_excess=e_std5)
+    check(e_mean5 <= 1e-6 and e_std5 <= 1e-6, f"fem[5]: the poisson_fem fixture: mean {e_mean5:.3e} of max(|mean|, "
+          f"1) <= 1e-6, std within 1e-6 (excess {e_std5:.3e})")
+
+    tag = f"fem[{FEM_ELEMENTS}]"
+    xq = np.linspace(-1.0, 1.0, nq)
+    spans = dense_spans()
+    _cuda.reset_launches()
+    with spans:
+        t0 = time.perf_counter()
+        p = fem_setup(FEM_ELEMENTS, device)
+        post = fem_condition(p)
+        sync()
+        out["condition_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mean, std = post.mean(xq), post.std(xq)
+        Pu = p["trial_proj"](post)
+        pgp = lgt.ParametricGaussianProcess(weights=Pu, feature_fn=p["trial"])
+        pmean, pstd = pgp.mean(xq), pgp.std(xq)
+        sync()
+        out["evaluate_s"] = time.perf_counter() - t0
+    out["launches"] = dict(_cuda.launches)
+    out["routes"] = [c.matvec_route for c in post.kLas]
+    results = (mean, std, Pu.mean, Pu.cov.matrix, pmean, pstd)
+    check(all(r.device.type == torch.device(device).type for r in results)
+          and all(bool(torch.isfinite(r).all()) for r in results) and mean.shape == (nq,) and pstd.shape == (nq,),
+          f"{tag}: mean and std of the posterior and of the parametric GP at {nq} queries finite, on {device}")
+    check(out["routes"] == ["K2", "evaluate @ w"], f"{tag}: mean routes (BC, Galerkin) {out['routes']}")
+    if torch.device(device).type == "cuda":
+        el = out["launches"]
+        check(el["gram"] > 0 and el["gram_matvec"] > 0 and spans.plain_on_cuda == 0,
+              f"{tag}: launched K1 and K2, no plain version on a CUDA tensor: {el}, {spans.plain_on_cuda} plain calls")
+    sol = p["bvp"].solution(torch.from_numpy(xq)).numpy()
+    mean_np = mean.cpu().numpy()
+    rmse = float(np.sqrt(np.mean((mean_np - sol) ** 2)))
+    w = classical_fem(p["A"], p["rhs"], p["Y_bc"])
+    node_diff = float(np.abs(Pu.mean.cpu().numpy() - w).max())
+    out.update(rmse=rmse, pgp_rmse=float(np.sqrt(np.mean((pmean.cpu().numpy() - sol) ** 2))), fem_node_diff=node_diff,
+               max_std=std.max().item())
+    check(rmse <= 1e-3, f"{tag}: RMSE vs the exact solution at {nq} queries {rmse:.3e} <= 1e-3")
+    check(node_diff <= 1e-3, f"{tag}: the projected mean vs the classical FEM solution {node_diff:.3e} <= 1e-3")
+    with default_device("cpu"):
+        post_c = fem_condition(fem_setup(FEM_ELEMENTS, "cpu"))
+        mean_c, std_c = post_c.mean(xq), post_c.std(xq)
+    e_cpu = float(np.abs(mean_np - mean_c.numpy()).max() / np.abs(mean_c.numpy()).max())
+    out.update(mean_vs_cpu=e_cpu, std_vs_cpu=float(np.abs(std.cpu().numpy() - std_c.numpy()).max()
+                                                    / std_c.numpy().max()))
+    check(e_cpu <= 1e-9, f"{tag}: the card's mean vs the port's CPU path {e_cpu:.3e} of max |mean| <= 1e-9 "
+          f"(std: {out['std_vs_cpu']:.3e} of max std, logged)")
+    err, finite, where = _double_projection_error(p["trial"], device)
+    out["double_projection_rel_err"] = err
+    check(finite and err <= 1e-8 and where.startswith(torch.device(device).type),
+          f"{tag}: the exact double-projection Gram ({where}) vs its per-cell Gauss-Legendre oracle on "
+          f"{FEM_ORACLE_ROWS} middle rows: {err:.3e} per entry <= 1e-8")
+
+    sweep = {}
+    for n_el in FEM_SWEEP:
+        row = {}
+        p = fem_setup(n_el, device)
+        try:
+            m = fem_condition(p).mean(xq)
+            row.update(raised=None, rmse=float(np.sqrt(np.mean((m.cpu().numpy() - sol) ** 2))),
+                       mean_finite=bool(torch.isfinite(m).all()))
+        except torch.linalg.LinAlgError as exc:
+            row.update(raised=f"LinAlgError: {exc}")
+        trial, L, k = p["trial"], p["L"], p["prior"].cov
+        with default_device(device):
+            gal = apply_functional_to_crosscov(L, apply_functional(L, k, argnum=1)).matrix
+        eig = torch.linalg.eigvalsh(0.5 * (gal + gal.T))
+        row.update(eig_min=eig[0].item(), eig_max=eig[-1].item())
+        row["double_projection_rel_err"], g_finite, _ = _double_projection_error(trial, device)
+        sweep[n_el] = row
+        nan = not g_finite or not bool(torch.isfinite(eig).all()) or row.get("mean_finite") is False
+        log(f"  fem sweep[{n_el}]: " + json.dumps(row))
+        check(not nan, f"fem sweep[{n_el}]: no NaN (conditioning {'raised' if row['raised'] else 'ran'}; Galerkin "
+              f"Gram eigenvalues [{row['eig_min']:.3e}, {row['eig_max']:.3e}], double-projection Gram "
+              f"{row['double_projection_rel_err']:.3e} off its oracle)")
+    out["sweep"] = sweep
+    log("fem " + json.dumps(out))
+    return out["launches"]
+
+
+def integral_star() -> float:
+    """``\\int\\int u*`` over the box: ``(4 / pi) (1 - e^{-5c}) / c``, c = 0.1 pi^2 / 4."""
+    c = 0.1 * np.pi**2 / 4.0
+    return float(4.0 / np.pi * (1.0 - np.exp(-5.0 * c)) / c)
+
+
+def integral_path(prior, H, X, Xa, Ya, cuts, noise, anchor_noise, Xq, device):
+    """The integral route on a dense IBVP posterior: ``I(prior)``, ``I(post)``,
+    the posterior conditioned on ``y = \\int\\int u*`` through ``I`` (noise
+    :data:`INTEGRAL_NOISE`), its ``I`` and its mean at ``Xq``."""
+    import linpde_gp_tpu_torch as lgt
+
+    with default_device(device):
+        I = lgt.functionals.LebesgueIntegral(lgt.domains.Box(INTEGRAL_BOX))
+        post = condition_dense_ibvp(prior, H, X, Xa, Ya, cuts, noise, anchor_noise)
+        prior_rv, rv = I(prior), I(post)
+        post2 = post.condition_on_observations(np.asarray(integral_star()), L=I,
+                                               b=lgt.Normal(np.asarray(0.0), np.asarray(INTEGRAL_NOISE)))
+        rv2 = I(post2)
+        mean2 = post2.mean(Xq)
+    return dict(prior_var=float(prior_rv.var), m=float(rv.mean), v=float(rv.var), m2=float(rv2.mean),
+                v2=float(rv2.var), mean2=mean2)
+
+
+def phase_integral(n=DENSE_N, nq=8192, device="cuda") -> dict:
+    """``LebesgueIntegral`` over the space-time box on the dense IBVP posterior
+    (:func:`run_dense_path`'s problem: N PDE points and 96 + 2 x 48 anchors)
+    at the default 64 x 4 Gauss-Legendre panels per axis (65,536 nodes):
+    ``I(prior)``, ``I(post)``, conditioning on the integral, the new
+    posterior's mean at ``nq`` queries; the launch counts set to 0 just
+    before ``I(prior)`` and read after that mean.  Checked: ``I(post)``
+    against the closed form and against the same quadrature of the
+    posterior mean (K2 at the nodes), 0 <= var <= prior var, the scalar
+    Gaussian update, the integral term of the new mean by K2, RMSE vs u*,
+    the phase's K1 and K2 calls against their plain versions, the peak
+    device memory; then a small copy against the CPU path and the 1-D exact
+    hooks against the CPU.  Returns the counted launches."""
+    import torch
+
+    import linpde_gp_tpu_torch as lgt
+    from linpde_gp_tpu_torch.ops import _cuda
+    from linpde_gp_tpu_torch.ops.transforms.integrals_exact import exact_integral_hooks
+    from linpde_gp_tpu_torch.specs import spec_diagonal
+
+    tag = "integral"
+    on_card = torch.device(device).type == "cuda"
+    prior, H = heat_problem(device)
+    X, Xq = ibvp_data(n, nq)
+    n_ic, n_bc = 96, 48
+    Xa, Ya = ibvp_anchors(n_ic, n_bc)
+    cuts = (0, n_ic, n_ic + n_bc, n_ic + 2 * n_bc)
+    noise, anchor_noise = 1e-3 * spec_diagonal(heat_specs()["obs"]), 1e-5
+    y = integral_star()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    out = dict(n=n, nq=nq, y=y, noise=INTEGRAL_NOISE)
+    with default_device(device):
+        I = lgt.functionals.LebesgueIntegral(lgt.domains.Box(INTEGRAL_BOX))
+        t0 = time.perf_counter()
+        post = condition_dense_ibvp(prior, H, X, Xa, Ya, cuts, noise, anchor_noise)
+        sync()
+        out["dense_condition_s"] = time.perf_counter() - t0
+        out["nodes"] = I.discretization().num_points
+        spans = dense_spans()
+        _cuda.reset_launches()
+        with spans:
+            t0 = time.perf_counter()
+            prior_rv = I(prior)
+            sync()
+            out["prior_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            rv = I(post)
+            sync()
+            out["post_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            post2 = post.condition_on_observations(np.asarray(y), L=I,
+                                                   b=lgt.Normal(np.asarray(0.0), np.asarray(INTEGRAL_NOISE)))
+            sync()
+            out["condition_s"] = time.perf_counter() - t0
+            k2_before = len(spans.kept["k2_calls"])
+            before = dict(_cuda.launches)
+            t0 = time.perf_counter()
+            mean2 = post2.mean(Xq)
+            sync()
+            out["mean_s"] = time.perf_counter() - t0
+            out["mean_launches"] = {k: _cuda.launches[k] - before[k] for k in before}
+            mean_k2 = spans.kept["k2_calls"][k2_before:]
+        out["launches"] = dict(_cuda.launches)
+        out["stages_s"], out["stage_calls"] = dict(spans.seconds), dict(spans.calls)
+        out["plain_calls_on_cuda"] = spans.plain_on_cuda
+        if on_card:
+            out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        m, v, pv = float(rv.mean), float(rv.var), float(prior_rv.var)
+        rv2 = I(post2)
+        m2, v2 = float(rv2.mean), float(rv2.var)
+        disc = I.discretization()
+        quad_mean = (disc.weights @ post.mean(disc.points).reshape(-1)).item()
+    out.update(prior_var=pv, m=m, v=v, m2=m2, v2=v2, quad_mean=quad_mean, routes=[c.matvec_route for c in post2.kLas])
+    e_star = abs(m - y) / y
+    e_quad = abs(m - quad_mean) / abs(quad_mean)
+    out.update(rel_err_vs_closed_form=e_star, rel_err_vs_quadrature=e_quad)
+    log(f"  {tag}: {out['nodes']} nodes; I(prior) {out['prior_s']:.3f} s, I(post) {out['post_s']:.3f} s, "
+        f"conditioning {out['condition_s']:.3f} s, mean {out['mean_s']:.4f} s; stages {out['stages_s']} in "
+        f"{out['stage_calls']} calls; launches {out['launches']}, the "
+        f"mean's {out['mean_launches']}; peak {out.get('peak_gb', float('nan')):.2f} GB")
+    check(out["nodes"] == 65536, f"{tag}: {out['nodes']} quadrature nodes (64 x 4 panels per axis)")
+    check(e_star <= 1e-4, f"{tag}: I(post).mean {m:.9f} vs the closed form {y:.9f}: {e_star:.3e} relative <= 1e-4")
+    check(e_quad <= 1e-10, f"{tag}: I(post).mean vs w . post.mean(nodes) (K2): {e_quad:.3e} relative <= 1e-10")
+    check(0.0 <= v <= pv, f"{tag}: 0 <= I(post).var {v:.6e} <= I(prior).var {pv:.6e}")
+    m2_ref = m + v / (v + INTEGRAL_NOISE) * (y - m)
+    v2_ref = v * INTEGRAL_NOISE / (v + INTEGRAL_NOISE)
+    out.update(m2_err=abs(m2 - m2_ref) / abs(y), v2_err=abs(v2 - v2_ref) / pv)
+    check(out["m2_err"] <= 1e-8, f"{tag}: m2 = m + v/(v+s2)(y-m): {m2:.12f} vs {m2_ref:.12f}, {out['m2_err']:.3e} of "
+          "|y| <= 1e-8")
+    check(out["v2_err"] <= 1e-11, f"{tag}: v2 = v s2/(v+s2): {v2:.6e} vs {v2_ref:.6e}, {out['v2_err']:.3e} of "
+          "I(prior).var <= 1e-11")
+    integral_k2 = [c for c in mean_k2 if c[0][2].shape[0] == out["nodes"]]
+    check(out["routes"][-1] == "K2" and len(integral_k2) == 1
+          and (not on_card or out["mean_launches"]["gram_matvec"] == len(out["routes"])),
+          f"{tag}: the new mean's integral term took K2 ({len(integral_k2)} call at {nq} x {out['nodes']}; "
+          f"routes {out['routes']}; the mean's launches {out['mean_launches']})")
+    finite = bool(torch.isfinite(mean2).all()) and all(np.isfinite([m, v, pv, m2, v2]))
+    rmse = float(np.sqrt(np.mean((mean2.double().cpu().numpy() - u_star(Xq)) ** 2)))
+    out["rmse"] = rmse
+    check(finite and rmse <= 4e-4, f"{tag}: the new posterior's mean finite, RMSE vs u* at {nq} queries {rmse:.3e} "
+          "<= 4e-4")
+    if on_card:
+        el = out["launches"]
+        check(el["gram"] > 0 and el["gram_matvec"] > 0 and spans.plain_on_cuda == 0,
+              f"{tag}: launched K1 and K2, no plain version on a CUDA tensor: {el}, {spans.plain_on_cuda} plain calls")
+        check(out["peak_gb"] < 40, f"{tag}: peak device memory {out['peak_gb']:.2f} GB < 40")
+    del post, post2, prior_rv, rv, rv2, mean2
+    spans.kept["k2_calls"] = mean_k2
+    if on_card:
+        torch.cuda.empty_cache()
+    out.update(_check_dense_kernels(spans, tag, on_card))
+    del spans
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # A small copy on the card against the port's CPU path.
+    sm = INTEGRAL_SMALL
+    Xs, _ = ibvp_data(sm["n"], 0)
+    Xas, Yas = ibvp_anchors(sm["n_ic"], sm["n_bc"])
+    cuts_s = (0, sm["n_ic"], sm["n_ic"] + sm["n_bc"], sm["n_ic"] + 2 * sm["n_bc"])
+    xq_s = Xq[:256]
+    with quadrature(sm["order"], sm["panels"]):
+        runs = {}
+        for dev in (device, "cpu"):
+            prior_d, H_d = heat_problem(dev)
+            runs[dev] = integral_path(prior_d, H_d, Xs, Xas, Yas, cuts_s, noise, anchor_noise, xq_s, dev)
+    a, b = runs[device], runs["cpu"]
+    # Means relative to themselves; the posterior variances, differences of
+    # terms the size of the prior variance, relative to it.
+    small = {key: abs(a[key] - b[key]) / abs(b[key]) for key in ("prior_var", "m", "m2")}
+    small.update({key: abs(a[key] - b[key]) / b["prior_var"] for key in ("v", "v2")})
+    small["mean2"] = ((a["mean2"].cpu() - b["mean2"]).abs().max() / b["mean2"].abs().max()).item()
+    out["small_vs_cpu"] = small
+    worst = max(small.values())
+    check(worst <= 1e-10, f"{tag}: N = {sm['n']} + {cuts_s[-1]} anchors, order {sm['order']} x {sm['panels']}: the "
+          f"card vs the CPU path {worst:.3e} relative <= 1e-10 ({small})")
+
+    # The 1-D exact hooks at 1e5 points against the CPU.
+    x = np.linspace(-1.5, 1.5, 100_000)
+    hooks = {}
+    for nu in (0.5, 1.5, 2.5, 3.5):
+        k = 1.7 * lgt.kernels.Matern((), nu=nu, lengthscales=0.6)
+        I1 = lgt.functionals.LebesgueIntegral(lgt.domains.Interval(-1.0, 1.0))
+        fn = exact_integral_hooks(k, I1)[0]
+        got, ref = fn(torch.as_tensor(x, device=device)), fn(torch.as_tensor(x))
+        hooks[nu] = ((got.cpu() - ref).abs().max() / ref.abs().max()).item()
+        check(got.device.type == torch.device(device).type and hooks[nu] <= 1e-13,
+              f"{tag}: exact Lebesgue crosscov of 1.7 Matern(nu = {nu}) at 1e5 points on {got.device} vs the CPU "
+              f"{hooks[nu]:.3e} of max <= 1e-13")
+    out["hooks_vs_cpu"] = hooks
+    log(f"{tag} " + json.dumps(out))
+    return out["launches"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -2435,7 +2944,7 @@ def main(argv=None) -> int:
         f"float32_matmul_precision={torch.get_float32_matmul_precision()}")
 
     timing, banded_timing = {}, {}
-    launches = {"main": {}, "dense": {}, "mean": {}, "grid": {}}
+    launches = {"main": {}, "dense": {}, "mean": {}, "grid": {}, "fem": {}, "integral": {}}
     for phase in PHASES:
         if phase not in phases and phase not in ("device", "build"):
             continue
@@ -2461,8 +2970,12 @@ def main(argv=None) -> int:
                 launches["mean"] = phase_mean(n, nq)
             elif phase == "symbolic":
                 phase_symbolic()
-            else:
+            elif phase == "grid":
                 launches["grid"] = phase_grid(timing)
+            elif phase == "fem":
+                launches["fem"] = phase_fem(nq)
+            else:
+                launches["integral"] = phase_integral(DENSE_N, nq)
         except Exception as exc:  # noqa: BLE001 - every phase reports, then the script fails
             traceback.print_exc()
             failures.append(f"phase {phase}: {type(exc).__name__}: {exc}")

@@ -12,11 +12,15 @@ mirrors its module paths and names and never imports JAX.  Ported so far:
   (:class:`models.iterative.IterativeGPRegressor`);
 - the symbolic layer: any linear operator on any function (the exact
   shortcuts, else forward-mode autodiff) and on every kernel of the JAX
-  package but the parametric ones (closed forms for the product and radial
-  Matérn families, the general-``nu`` Matérn through a host Bessel call,
-  multi-output kernels, autodiff for the rest), and the closed-form kernel
+  package (closed forms for the product and radial Matérn families, the
+  general-``nu`` Matérn through a host Bessel call, multi-output and
+  parametric kernels, autodiff for the rest), and the closed-form kernel
   specs the CUDA kernels evaluate (``ops/kernels``, ``ops/diffops``,
-  ``ops/transforms``).
+  ``ops/transforms``);
+- the observation model's functionals: point evaluations, Lebesgue
+  integrals (exact for half-integer Matérn kernels on intervals, else
+  Gauss-Legendre panels), FEM hat-basis L2 projections and weak forms, and
+  GP-FEM (Galerkin) conditioning with parametric GPs on the projections.
 
 Both engines evaluate kernels through hand-written CUDA kernels for Gram
 assembly and the Gram matvec (``csrc/gram.cuh``) and the banded matvec of
@@ -38,6 +42,7 @@ from .models import (
     GaussianProcess,
     IterativeGPRegressor,
     Normal,
+    ParametricGaussianProcess,
     asrandvar,
     domains,
     functions,
@@ -71,6 +76,7 @@ __all__ = [
     "GaussianProcess",
     "ConditionalGaussianProcess",
     "IterativeGPRegressor",
+    "ParametricGaussianProcess",
     "DeterministicProcess",
     "Normal",
     "Constant",

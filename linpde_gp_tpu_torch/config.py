@@ -50,6 +50,12 @@ class _Config:
     #: relative to the mean diagonal (JAX ``config.py:30``).
     cholesky_jitter: float = 0.0
 
+    #: Gauss-Legendre nodes per panel of the quadrature fallbacks
+    #: (``LebesgueIntegral``; the projections take ``max(order // 8, 8)`` per
+    #: element), and panels per interval (JAX ``config.py:33,36``).
+    quadrature_order: int = 64
+    quadrature_panels: int = 4
+
     #: Mixed-precision dense conditioning: factor float64 Grams in float32
     #: and recover float64 accuracy by preconditioned-CG refinement
     #: (``ops/linalg/refine.py``).

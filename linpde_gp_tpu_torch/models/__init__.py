@@ -5,6 +5,7 @@ PDE problems."""
 from . import domains, functions, problems, randvars
 from .gp import ConditionalGaussianProcess, GaussianProcess
 from .iterative import IterativeGPRegressor
+from .parametric import ParametricGaussianProcess
 from .randprocs import DeterministicProcess, asrandproc
 from .randvars import Constant, Normal, RandomVariable, asrandvar
 
@@ -15,6 +16,7 @@ __all__ = [
     "randvars",
     "GaussianProcess",
     "ConditionalGaussianProcess",
+    "ParametricGaussianProcess",
     "IterativeGPRegressor",
     "DeterministicProcess",
     "asrandproc",

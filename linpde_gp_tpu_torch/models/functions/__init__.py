@@ -1,5 +1,5 @@
-"""Deterministic functions of the port (``linpde_gp_tpu/models/functions``
-without the FEM bases, which are ROADMAP Queue 1 item 9c)."""
+"""Deterministic functions of the port (``linpde_gp_tpu/models/functions``),
+with the univariate FEM hat basis."""
 
 from .arithmetic import ProductFunction, ScaledFunction, SumFunction, asfunction
 from .base import Function, LambdaFunction, Zero
@@ -14,7 +14,9 @@ from .basic import (
     TruncatedSineSeries,
     stack,
 )
+from .fem import UnivariateLinearInterpolationBasis
 from .polynomial import Monomial, Polynomial, RationalPolynomial
+from . import bases
 
 __all__ = [
     "Function",
@@ -36,4 +38,6 @@ __all__ = [
     "Monomial",
     "Polynomial",
     "RationalPolynomial",
+    "UnivariateLinearInterpolationBasis",
+    "bases",
 ]

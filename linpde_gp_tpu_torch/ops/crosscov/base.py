@@ -17,6 +17,16 @@ JAX package evaluates such blocks and multiplies).  Every other block
 takes ``evaluate(x) @ w``, whose Gram still comes from K1.  A kernel
 without a spec, or with array outputs, is evaluated by broadcasting its
 own ``_evaluate``, as the JAX package falls back to ``kernel.matrix``.
+
+A (scaled) 1-D half-integer Matérn under a Lebesgue integral on an interval
+or a hat-basis projection takes the exact closed forms of
+``ops/transforms/integrals_exact.py`` (crosscov and Gram block) before any
+discretization, and its ``matvec`` takes ``evaluate @ w`` (the JAX package's
+CPU route), never K2 over the quadrature nodes.  A functional with weights
+(integrals, projections) is contracted in blocks of its nodes, ``sum_b
+W[:, b] @ vals(nodes[b])`` (:data:`NODE_BLOCK_ELEMS`): the JAX package forms
+``vals`` at every node at once, which for a 65,536-node integral against
+~3e4 observations is 17 GB in float64.
 """
 
 from __future__ import annotations
@@ -26,7 +36,7 @@ import functools
 import numpy as np
 import torch
 
-from ...config import as_f64
+from ...config import as_f64, resolve_device
 from ...utils.shapes import ShapeType, as_shape, size
 from ..functionals.base import (
     CompositeLinearFunctional,
@@ -35,6 +45,17 @@ from ..functionals.base import (
     SumLinearFunctional,
 )
 from ..kernels.base import CovarianceFunction
+
+#: Entries of one ``vals(nodes[b])`` block of a weighted contraction, per
+#: device type: the node block holds about this many values.
+NODE_BLOCK_ELEMS = {"cuda": 1 << 25, "cpu": 1 << 16}
+
+
+def _node_blocks(n_nodes: int, row_size: int, device):
+    """Slices of at most ``NODE_BLOCK_ELEMS / row_size`` nodes covering
+    ``range(n_nodes)``."""
+    step = max(1, NODE_BLOCK_ELEMS.get(torch.device(device).type, 1 << 25) // max(row_size, 1))
+    return [slice(s, min(s + step, n_nodes)) for s in range(0, n_nodes, step)]
 
 
 class ProcessVectorCrossCovariance:
@@ -159,6 +180,14 @@ class KernelFunctionalCrossCov(ProcessVectorCrossCovariance):
             kernel = apply_operator_to_kernel(functional.linfuncop, kernel, argnum=1)
             functional = functional.linfunctl
         if isinstance(functional, (ScaledLinearFunctional, SumLinearFunctional, CompositeLinearFunctional)):
+            return None
+        from ..transforms.integrals_exact import exact_integral_hooks, exact_projection_crosscov
+
+        # An exact closed form is the crosscov itself: evaluate it.
+        if (
+            exact_integral_hooks(kernel, functional) is not None
+            or exact_projection_crosscov(kernel, functional) is not None
+        ):
             return None
         spec = kernel_term_specs(kernel)
         if spec is None:
@@ -345,9 +374,17 @@ def evaluate_crosscov_contraction(
             vals = vals @ functional.linop.todense().T.to(vals)
         return vals
 
-    # The exact-integral and hat-projection hooks (crosscov/base.py:393-408 of
-    # the JAX package) wait for ROADMAP item 9c: the functionals that trigger
-    # them (LebesgueIntegral, the projections) are not ported yet.
+    # The exact closed forms: the Lebesgue crosscov on an interval and the
+    # hat-basis projection crosscov of a (scaled) 1-D half-integer Matérn.
+    from ..transforms.integrals_exact import exact_integral_hooks, exact_projection_crosscov
+
+    hook = exact_integral_hooks(kernel, functional)
+    if hook is not None:
+        return hook[0](x)[..., None]
+    proj_fn = exact_projection_crosscov(kernel, functional)
+    if proj_fn is not None:
+        return proj_fn(x)
+
     from ..gram import gram_matrix, kernel_term_specs
 
     disc = functional.discretization()
@@ -356,15 +393,22 @@ def evaluate_crosscov_contraction(
     batch_ndim = x.ndim - in_ndim
     batch = tuple(x.shape[:batch_ndim])
 
-    # Scalar kernels with a spec: the contraction is a Gram (n, nq), by K1.
+    # Scalar kernels with a spec: the contraction is a Gram (n, nq), by K1,
+    # contracted with the weights a block of nodes at a time.
     if kernel.output_shape_0 == () and kernel.output_shape_1 == () and kernel_term_specs(kernel) is not None:
         x_flat = x.reshape((-1,) + kernel.input_shape)
-        if argnum == 1:
-            G = gram_matrix(kernel, x_flat, pts, "f64")  # (n, nq)
+
+        def gram_block(p):  # (n, nodes)
+            return gram_matrix(kernel, x_flat, p, "f64") if argnum == 1 else gram_matrix(kernel, p, x_flat, "f64").T
+
+        if disc.weights is None:
+            G = gram_block(pts)
         else:
-            G = gram_matrix(kernel, pts, x_flat, "f64").T  # (n, nq)
-        if disc.weights is not None:
-            G = G @ disc.weights.T.to(G)
+            W = disc.weights.to(x)
+            G = None
+            for b in _node_blocks(disc.num_points, x_flat.shape[0], x.device):
+                term = gram_block(pts[b]) @ W[:, b].T
+                G = term if G is None else G + term
         return G.reshape(batch + (G.shape[-1],))
 
     # Broadcast: the free points get a trailing singleton batch axis.
@@ -428,19 +472,41 @@ def apply_functional_to_crosscov(functional: LinearFunctional, crosscov: Process
             return Covariance(mat, functional.output_shape, (crosscov.randvar_size,))
         return inner
 
-    # (The exact-integral and hat-projection Gram blocks, crosscov/base.py:523-552
-    # of the JAX package, wait for item 9c with their functionals.)
+    if isinstance(crosscov, KernelFunctionalCrossCov):
+        from ..functionals.integrals import LebesgueIntegral
+        from ..transforms.integrals_exact import exact_integral_hooks, exact_projection_gram
+
+        # The exact double integral of matching Matérn integral pairs.
+        if (
+            isinstance(functional, LebesgueIntegral)
+            and isinstance(crosscov.functional, LebesgueIntegral)
+            and functional.domain == crosscov.functional.domain
+        ):
+            hook = exact_integral_hooks(crosscov.kernel, crosscov.functional)
+            if hook is not None:
+                gram = torch.tensor([[hook[1]]], dtype=torch.float64, device=resolve_device())
+                return Covariance(gram, functional.output_shape, (1,))
+        # The exact hat x hat double-projection Gram block.
+        blk = exact_projection_gram(functional, crosscov)
+        if blk is not None:
+            return Covariance(blk, functional.output_shape, (crosscov.randvar_size,))
+
     disc = functional.discretization()
-    vals = crosscov.evaluate(disc.points)  # (nq,) + proc_out + (m,)
     m = crosscov.randvar_size
     nq = disc.num_points
     proc_size = size(crosscov.randproc_output_shape)
     if disc.weights is None:
+        vals = crosscov.evaluate(disc.points)  # (nq,) + proc_out + (m,)
         codomain_first = getattr(functional, "codomain_first", True)
         if crosscov.randproc_output_shape == () or not codomain_first:
             block = vals.reshape(nq * proc_size, m)
         else:
             block = torch.movedim(vals.reshape(nq, proc_size, m), 1, 0).reshape(proc_size * nq, m)
     else:
-        block = disc.weights.to(vals) @ vals.reshape(nq * proc_size, m)
+        # sum_b W[:, b] @ vals(nodes[b]): the weights' columns run point-major.
+        block = None
+        for b in _node_blocks(nq, m * proc_size, disc.points.device):
+            vals = crosscov.evaluate(disc.points[b]).reshape(-1, m)
+            term = disc.weights[:, b.start * proc_size:b.stop * proc_size].to(vals) @ vals
+            block = term if block is None else block + term
     return Covariance(block, functional.output_shape, (m,))

@@ -2,8 +2,9 @@
 
 Port of ``linpde_gp_tpu/ops/diffops/lindiffop.py``: every operator is a
 coefficient table (``coefficients.py``), and the kernel transformation
-rules consume only that table.  Weak forms come with the FEM functionals
-(ROADMAP Queue 1 item 9c).
+rules consume only that table.  ``weak_form`` gives the FEM weak-form
+functional of an operator on a test basis (the Laplacian and its scaled
+forms on the hat basis).
 """
 
 from __future__ import annotations
@@ -34,7 +35,9 @@ class LinearDifferentialOperator(LinearFunctionOperator):
         return tuple(self._coefficients.items_flat())
 
     def weak_form(self, test_basis):
-        raise NotImplementedError("weak forms are not ported yet (ROADMAP Queue 1 item 9c)")
+        """The weak-form functional on ``test_basis``; none is registered
+        for a general operator."""
+        raise NotImplementedError(f"No weak form registered for {type(self).__name__}.")
 
     def __rmul__(self, other):
         if np.ndim(other) == 0:
@@ -62,6 +65,9 @@ class ScaledLinearDifferentialOperator(LinearDifferentialOperator):
     @property
     def scalar(self) -> float:
         return self._scalar
+
+    def weak_form(self, test_basis):
+        return self._scalar * self._lindiffop.weak_form(test_basis)
 
     def __repr__(self):
         return f"{self._scalar} * {self._lindiffop!r}"
@@ -169,6 +175,14 @@ class WeightedLaplacian(LinearDifferentialOperator):
 class Laplacian(WeightedLaplacian):
     def __init__(self, domain_shape):
         super().__init__(np.ones(as_shape(domain_shape)))
+
+    def weak_form(self, test_basis):
+        from ...models.functions.fem import UnivariateLinearInterpolationBasis
+        from ..functionals.weak_forms import WeakForm_Laplacian_UnivariateInterpolationBasis
+
+        if isinstance(test_basis, UnivariateLinearInterpolationBasis):
+            return WeakForm_Laplacian_UnivariateInterpolationBasis(test_basis)
+        raise NotImplementedError(f"No weak form for test basis {type(test_basis).__name__}.")
 
 
 class SpatialLaplacian(WeightedLaplacian):

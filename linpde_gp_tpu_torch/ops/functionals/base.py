@@ -75,10 +75,7 @@ class LinearFunctional:
 
     # -- core protocol ---------------------------------------------------
     def discretization(self) -> Discretization:
-        raise NotImplementedError(
-            f"{type(self).__name__} does not expose a discretization (integral, projection and weak-form "
-            "functionals are ROADMAP Queue 1 item 9c)."
-        )
+        raise NotImplementedError(f"{type(self).__name__} does not expose a discretization.")
 
     def apply_to_function(self, f) -> torch.Tensor:
         """Contract through the discretization: ``weights`` (when given)

@@ -1,10 +1,12 @@
 """Covariance functions of the port: the closed-form product family, the
-general-``nu`` Matérn and the multi-output kernels."""
+general-``nu`` Matérn, the multi-output and the parametric (Galerkin)
+kernels."""
 
 from .arithmetic import ScaledCovarianceFunction, SumCovarianceFunction, ZeroCovarianceFunction
 from .base import CovarianceFunction, StationaryMixin
 from .bessel import kv, matern_bessel
 from .multioutput import IndependentMultiOutputCovarianceFunction, StackCovarianceFunction
+from .parametric import GalerkinCovarianceFunction, ParametricCovarianceFunction
 from .stationary import ExpQuad, Matern, half_integer_matern_coefficients
 from .tensor_product import TensorProduct
 from .wendland import (
@@ -28,6 +30,8 @@ __all__ = [
     "matern_bessel",
     "IndependentMultiOutputCovarianceFunction",
     "StackCovarianceFunction",
+    "ParametricCovarianceFunction",
+    "GalerkinCovarianceFunction",
     "TensorProduct",
     "WendlandCovarianceFunction",
     "WendlandFunction",

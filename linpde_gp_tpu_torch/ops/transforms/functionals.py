@@ -5,8 +5,10 @@ Port of ``linpde_gp_tpu/ops/transforms/functionals.py``
 process-vector cross-covariances, GPs and their posteriors, deterministic
 processes and functions (``Zero``, scaled, sum and composite functionals
 symbolically; a composite's operator reaches any function through
-``dispatch.apply_operator_to_function``).  The weak-form and Lebesgue-integral routes (``:42-44``,
-``:118-149`` there) come with ROADMAP item 9c, with their functionals.
+``dispatch.apply_operator_to_function``).  A Laplacian weak form applied
+to a trial hat basis gives its stiffness matrix, and a Lebesgue integral of
+a constant, or on an interval of a polynomial or a piecewise polynomial, is
+integrated exactly.
 """
 
 from __future__ import annotations
@@ -14,7 +16,11 @@ from __future__ import annotations
 import torch
 
 from ...config import resolve_device
+from ...models.domains import Interval
 from ...models.functions.base import Function, Zero
+from ...models.functions.basic import Constant, Piecewise
+from ...models.functions.fem import UnivariateLinearInterpolationBasis
+from ...models.functions.polynomial import Polynomial
 from ..crosscov.base import KernelFunctionalCrossCov, ProcessVectorCrossCovariance, apply_functional_to_crosscov
 from ..functionals.base import (
     CompositeLinearFunctional,
@@ -22,6 +28,8 @@ from ..functionals.base import (
     ScaledLinearFunctional,
     SumLinearFunctional,
 )
+from ..functionals.integrals import LebesgueIntegral
+from ..functionals.weak_forms import WeakForm_Laplacian_UnivariateInterpolationBasis
 from ..kernels.base import CovarianceFunction
 
 
@@ -31,6 +39,12 @@ def apply_functional(functional: LinearFunctional, obj, /, **kwargs):
     from ...models.randvars import Constant as ConstantRV
     from ...models.randvars import Normal
     from ..linalg.covariance import Covariance
+
+    # A weak form applied to a trial basis: the stiffness matrix.
+    if isinstance(functional, WeakForm_Laplacian_UnivariateInterpolationBasis) and isinstance(
+        obj, UnivariateLinearInterpolationBasis
+    ):
+        return functional.stiffness_matrix(obj)
 
     if isinstance(obj, CovarianceFunction):
         return KernelFunctionalCrossCov(obj, functional, kwargs.get("argnum", 1))
@@ -66,10 +80,15 @@ def apply_functional(functional: LinearFunctional, obj, /, **kwargs):
 
 
 def _apply_to_function_symbolic(functional: LinearFunctional, f: Function):
-    """Function application with the exact shortcuts: zero functions,
-    scaled, sum and composite functionals."""
+    """Function application with the exact shortcuts: zero functions, the
+    weak form on a trial basis, scaled, sum and composite functionals, and
+    exact Lebesgue integrals."""
     if isinstance(f, Zero):
         return torch.zeros(functional.output_shape, dtype=torch.float64, device=resolve_device())
+    if isinstance(functional, WeakForm_Laplacian_UnivariateInterpolationBasis) and isinstance(
+        f, UnivariateLinearInterpolationBasis
+    ):
+        return functional.stiffness_matrix(f)
     if isinstance(functional, ScaledLinearFunctional):
         return functional.scalar * _apply_to_function_symbolic(functional.linfunctl, f)
     if isinstance(functional, SumLinearFunctional):
@@ -88,4 +107,39 @@ def _apply_to_function_symbolic(functional: LinearFunctional, f: Function):
         if functional.linop is not None:
             vals = functional.linop @ vals.reshape(-1)
         return vals.reshape(functional.output_shape)
+    if isinstance(functional, LebesgueIntegral):
+        exact = _exact_lebesgue_integral(functional, f)
+        if exact is not None:
+            return exact
     return functional.apply_to_function(f)
+
+
+def _exact_lebesgue_integral(functional: LebesgueIntegral, f: Function):
+    """The exact integral of a constant on any domain, and on an interval of
+    a polynomial or a piecewise polynomial; else ``None``.  A float64 tensor
+    on the default device."""
+    domain = functional.domain
+
+    def value(v):
+        return torch.as_tensor(v, dtype=torch.float64).to(resolve_device())
+
+    def at(x):
+        return torch.tensor(float(x), dtype=torch.float64)
+
+    if isinstance(f, Constant):
+        return value(f.value * domain.volume)
+    if isinstance(domain, Interval):
+        a, b = float(domain[0]), float(domain[1])
+        if isinstance(f, Polynomial):
+            anti = f.integrate()
+            return value(anti(at(b)) - anti(at(a)))
+        if isinstance(f, Piecewise) and all(isinstance(p, Polynomial) for p in f.pieces):
+            total = 0.0
+            for piece, lo, hi in zip(f.pieces, f.xs[:-1], f.xs[1:]):
+                lo_c, hi_c = max(lo, a), min(hi, b)
+                if hi_c <= lo_c:
+                    continue
+                anti = piece.integrate()
+                total = total + (anti(at(hi_c)) - anti(at(lo_c)))
+            return value(total)
+    return None

@@ -6,12 +6,12 @@ machinery, ``experiments/cpu.py``): the block-diagonal Gram of an
 ``IndependentMultiOutputCovarianceFunction``; ``d^2 o SelectOutput``
 reaching the component's closed form through ``StackCovarianceFunction``;
 joint inference of ``(u, q_V, q_A)`` through the dense engine on operator,
-boundary-flux and noisy point observations (its aggregate statistic is
-the JAX test's with point evaluations in place of the Lebesgue integral,
-a ROADMAP item 9c functional), with the posterior mean and std within
-1e-8 of the JAX posterior's (relative to their max) and the noiseless
-statistic interpolated to 1e-8; and the posterior covariance against a
-hand-rolled joint conditioner (1e-12).
+boundary-flux and noisy point observations and the JAX test's aggregate
+statistic (the Lebesgue integral of ``q_V`` plus the boundary fluxes),
+with the posterior mean and std within 1e-8 of the JAX posterior's
+(relative to their max) and the noiseless statistic interpolated to
+1e-8; and the posterior covariance against a hand-rolled joint
+conditioner (1e-12).
 """
 
 import jax.numpy as jnp
@@ -105,7 +105,7 @@ def _joint(pkg, width=1.0, kappa=2.0):
     post = post.condition_on_observations(
         Y=np.asarray([1.0, 1.2, 1.1]), L=select_u, X=X_dts, b=pkg.Normal(np.zeros(3), 0.05**2 * np.eye(3))
     )
-    L_stat = 2.0 * (select_qV.to_linfunctl(np.asarray(0.5 * width))) + 2.0 * (
+    L_stat = 2.0 * pkg.functionals.LebesgueIntegral(input_domain=domain) @ select_qV + 2.0 * (
         select_qA.to_linfunctl(np.asarray(width)) + select_qA.to_linfunctl(np.asarray(0.0))
     )
     post = post.condition_on_observations(Y=np.asarray(0.0), L=L_stat)

@@ -82,6 +82,16 @@ _MODULES = [
     "linpde_gp_tpu_torch.models.functions.basic",
     "linpde_gp_tpu_torch.models.problems",
     "linpde_gp_tpu_torch.models.problems.pde",
+    "linpde_gp_tpu_torch.models.functions.fem",
+    "linpde_gp_tpu_torch.models.functions.bases",
+    "linpde_gp_tpu_torch.models.parametric",
+    "linpde_gp_tpu_torch.ops.functionals.integrals",
+    "linpde_gp_tpu_torch.ops.functionals.projections",
+    "linpde_gp_tpu_torch.ops.functionals.projections_ns",
+    "linpde_gp_tpu_torch.ops.functionals.projections_ns.l2",
+    "linpde_gp_tpu_torch.ops.functionals.weak_forms",
+    "linpde_gp_tpu_torch.ops.transforms.integrals_exact",
+    "linpde_gp_tpu_torch.ops.kernels.parametric",
 ]
 
 

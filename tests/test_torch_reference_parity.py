@@ -8,8 +8,10 @@ same ``tests/fixtures/reference_parity.json`` at the same ``TOL = 1e-6``,
 and to the JAX posterior on the same inputs at the same tolerance.  Also
 ``test_parity_poisson_inverse_rhs``: the inverse right-hand-side problem,
 whose priors have zero means; its ``f`` posterior takes the pushforward
-``-Laplacian(u_post)`` as noise.  ``poisson_fem`` needs the FEM
-functionals (ROADMAP item 9c).
+``-Laplacian(u_post)`` as noise.  And ``test_parity_poisson_fem``: the
+GP-FEM Poisson problem, conditioned on the boundary values and then on
+the Galerkin observations ``A P[u] = b`` of the hat bases (weak form,
+L2 projection, exact projection crosscov).
 """
 
 import json
@@ -158,3 +160,31 @@ def test_parity_poisson_inverse_rhs():
         mean, std = post.mean(xq).numpy(), post.std(xq).numpy()
         _check(mean, std, np.asarray(fx[f"{key}_mean"]), np.asarray(fx[f"{key}_std"]))
         _check(mean, std, np.asarray(jpost.mean(xq)), np.asarray(jpost.std(xq)))
+
+
+def _poisson_fem(pkg, dops):
+    """``test_reference_parity.py::test_parity_poisson_fem``'s problem: 5
+    elements, ``-Laplacian`` weak form against the L2-projected trial basis."""
+    def b(n):
+        return pkg.Normal(np.zeros(n), NOISE * np.eye(n))
+
+    grid = np.linspace(-1.0, 1.0, 7)
+    trial = pkg.functions.UnivariateLinearInterpolationBasis(grid, zero_boundary=False)
+    test = pkg.functions.UnivariateLinearInterpolationBasis(grid, zero_boundary=True)
+    galerkin = (-1.0 * dops.Laplacian(())).weak_form(test)(trial)
+    rhs = np.asarray(test.l2_projection(normalized=False)(pkg.functions.Constant((), 2.0)))
+    prior = pkg.GaussianProcess(pkg.functions.Zero(()), 1.0 * pkg.kernels.Matern((), nu=1.5, lengthscales=1.0))
+    post = prior.condition_on_observations(np.asarray([0.0, 1.0]), X=np.asarray([-1.0, 1.0]), b=b(2))
+    return post.condition_on_observations(rhs, L=galerkin @ trial.l2_projection(), b=b(len(rhs)))
+
+
+def test_parity_poisson_fem():
+    """The port against the fixture and against the JAX posterior, at TOL."""
+    fx = FIXTURES["poisson_fem"]
+    xq = np.asarray(fx["xq"])
+    post = _poisson_fem(lgt, diffops)
+    assert post.device == torch.device("cpu")
+    mean, std = post.mean(xq).numpy(), post.std(xq).numpy()
+    _check(mean, std, np.asarray(fx["mean"]), np.asarray(fx["std"]))
+    jpost = _poisson_fem(jlgt, jdiffops)
+    _check(mean, std, np.asarray(jpost.mean(xq)), np.asarray(jpost.std(xq)))
