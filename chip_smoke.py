@@ -210,15 +210,64 @@ Phases, each printed as it finishes:
               I(prior), I(post), the conditioning and the mean, the launches,
               the peak GB.
 
+12. parallel - the parallel layer (``linpde_gp_tpu_torch.parallel``) at world
+              size 1 over NCCL on cuda:0, each run with the launch counts set
+              to 0 before its work and read just after; references outside:
+              - gram-free: ``DistributedIterativeGPRegressor`` on the main
+                phase's heat problem (N = 100,000, rank 8,192, noise 1e-3
+                k(0), tol 1e-5) in modes ff and f64 (K2 on the rank's slab, the
+                sharded Nystrom build on K1, the ff pair's both planes
+                gathered into the ff CG), the mean at 8,192 queries, in f64
+                ``var`` at 256; and the Wendland cell (N = 100,000, rank
+                1,024) through each rank's banded schedule, its mean and
+                ``var`` at 256.  Checked: finite values, relres, the true
+                relres (f64 K2) <= 1e-3, the mean within sqrt(k(q, q)) (rho +
+                rho_1) ||Y|| / sigma of the single-card
+                ``IterativeGPRegressor``'s on the same data (rho, rho_1 the
+                two true relres; at CG tol: 2 tol ||Y|| sqrt(k(q, q)) /
+                sigma), the heat f64 ``var`` within ``VAR_REL_BOUND`` (1e-4)
+                of max var of the single card's, 0 <= var <= prior var; the
+                run's own K1 and the mean's K2 calls and the rank's banded
+                kernel at r = 1 and 256 against their plain versions (as the
+                grid phase and the kernels phase hold them).
+              - dense: ``distributed_condition`` on ``H k H*`` at N = 32,768
+                (f64, blocks of 256) in layouts auto (cyclic on one rank),
+                contiguous and 2d (forced on the 1 x 1 mesh): weights within
+                ``PAR_W_BOUND`` (1e-8) of max |w| of the dense engine's, their
+                mean at 8,192 queries (K2) within ``PAR_W_BOUND`` of sum_j
+                |k_qj w_j| of the engine's, peak memory < 40 GB; the auto run's K1 block
+                and K2 calls against their plain versions; then
+                ``DistributedConditioner`` on H u = 0 at those points, the
+                IBVP's 192 anchors appended by ``extend``, ``posterior_eval``
+                at 8,192 queries (blocks of 1,024): the mean within
+                ``PAR_IBVP_MEAN_BOUND`` (1e-9) of max |mean| of the dense
+                engine's IBVP posterior, var (std^2) at 256 within
+                ``PAR_IBVP_VAR_BOUND`` (1e-9) of the prior variance.
+              - two ranks on the one card over gloo with CUDA tensors
+                (``parallel/launch.spawn``): the heat problem at N = 16,384
+                (f64); both ranks agree bit for bit, the mean within the
+                bound above of the single card's; the ranks' launches are
+                added to the phase's.
+              - ``dryrun_multichip(1)`` on the card (every stage against a
+                dense f64 oracle).
+              K1, K2 (both routes) and the banded kernel (both routes) must
+              launch.  Logged: seconds, iterations, launches, peak GB.
+13. native  - the g++ host engine (``linpde_gp_tpu_torch.native``) built on
+              the host and held to the plain f64 version on the CPU at 4096 x
+              4096 (the heat observation spec, random points): Gram within
+              1e-13 of max |K|, matvec within 1e-12 of max |Kv|,
+              ``ops/gram.gram`` on f64 CPU tensors routed to it; both routes'
+              seconds logged beside the host's CPU model.  No card kernel.
+
 The line before the last is a JSON object with one entry per kernel: its
 ff time at the main path's shape beside its plain version's, its bound
 (``bound_ms``: the larger of the operations the work needs, from the
 generator's per-pair counts, over the H100 SXM's peak rate of their
 pipe, and its bytes over the memory rate; :data:`PEAK`) and its launches
-in the main, dense, mean, grid, fem and integral phases
+in the main, dense, mean, grid, fem, integral and parallel phases
 (``launches_by_path``: the main phase's runs, the dense engine's own work,
-the mean path's runs, the grid path's runs, the checked GP-FEM run and the
-integral route, apart).  The last line is ``{"ok": true, "device":
+the mean path's runs, the grid path's runs, the checked GP-FEM run, the
+integral route and the parallel layer's runs, apart).  The last line is ``{"ok": true, "device":
 {...}}``, printed only if every phase passed.  The script never imports JAX.
 """
 
@@ -235,7 +284,8 @@ import traceback
 
 import numpy as np
 
-PHASES = ("device", "build", "kernels", "timing", "main", "dense", "mean", "symbolic", "grid", "fem", "integral")
+PHASES = ("device", "build", "kernels", "timing", "main", "dense", "mean", "symbolic", "grid", "fem", "integral",
+          "parallel", "native")
 # name -> (TPU kernel(s) it replaces, label, source)
 KERNELS = {
     "gram": ("linpde_gp_tpu/ops/pallas_gram.py:277", "K1", "linpde_gp_tpu_torch/csrc/gram.cuh"),
@@ -557,7 +607,23 @@ def path_specs() -> dict:
     out["heat_Lk"] = kernel_term_specs(apply_operator_to_kernel(H, prior.cov, argnum=0))
     out.update({f"wendland_{k}": v for k, v in wendland_specs().items()})
     out["fem_prior"] = kernel_term_specs(fem_setup(5, "cpu")["prior"].cov)
+    out.update(dryrun_specs())
     return out
+
+
+def dryrun_specs() -> dict:
+    """The parallel dry run's 1-D Poisson kernels (``parallel/dryrun.py``):
+    ``D k D*``, ``D k`` and ``k`` of ``4 Matern(5/2, l=1)``, D = -Laplacian."""
+    import linpde_gp_tpu_torch as lgt
+    from linpde_gp_tpu_torch.ops.gram import kernel_term_specs
+    from linpde_gp_tpu_torch.ops.transforms import apply_operator_to_kernel
+
+    k = 2.0**2 * lgt.kernels.Matern((), nu=2.5, lengthscales=1.0)
+    D = -1.0 * lgt.diffops.Laplacian(())
+    return {"dryrun_DkD": kernel_term_specs(apply_operator_to_kernel(D, apply_operator_to_kernel(D, k, argnum=1),
+                                                                     argnum=0)),
+            "dryrun_Dk": kernel_term_specs(apply_operator_to_kernel(D, k, argnum=0)),
+            "dryrun_k": kernel_term_specs(k)}
 
 
 def phase_build():
@@ -2115,7 +2181,7 @@ def _keep_mean_k2(args, out):
     return (args, out) if args[1].shape[0] != args[2].shape[0] else None
 
 
-def _check_grid_kernels(spans, tag, min_k1=4) -> dict:
+def _check_grid_kernels(spans, tag, min_k1=4, k1_what=None) -> dict:
     """The grid path's K1 and K2 launches against their plain versions on
     the run's own operands.  K1: per spec and mode the largest call (the
     Nystrom block, ``W``, ``kxX``, the anchors' Grams) launched again (CUDA
@@ -2128,7 +2194,8 @@ def _check_grid_kernels(spans, tag, min_k1=4) -> dict:
     within ``ROW_BOUND`` eps of that sum, the bounds of the kernels phase.
     K2 calls kept as ``None`` (the CG's) are not checked.  ``min_k1``: the
     (spec, mode) pairs the run must have launched K1 on.  The run must call
-    no plain version on a CUDA tensor."""
+    no plain version on a CUDA tensor.  ``k1_what`` names the K1 calls in the
+    log (default: the grid path's)."""
     import torch
 
     from linpde_gp_tpu_torch.ops.gram import gram, gram_matvec_plain, gram_plain
@@ -2154,8 +2221,9 @@ def _check_grid_kernels(spans, tag, min_k1=4) -> dict:
         check(err <= bound, f"{what} vs plain f64 on the same points: {err:.3e} of max |k| <= {bound:g}; "
               f"{k1_ms:.3f} ms (CUDA events, mean of 3), plain {plain_ms:.1f} ms")
         k1.append(dict(shape=list(shape), mode=mode, terms=len(terms), ms=k1_ms, plain_ms=plain_ms, rel_err=err))
-    check(len(k1) >= min_k1, f"{tag}: K1 checked on {len(k1)} >= {min_k1} (spec, mode) pairs: Nystrom, W, "
-          f"{'kxX, ' if min_k1 > 3 else ''}the anchors")
+    if k1_what is None:
+        k1_what = f"Nystrom, W, {'kxX, ' if min_k1 > 3 else ''}the anchors"
+    check(len(k1) >= min_k1, f"{tag}: K1 checked on {len(k1)} >= {min_k1} (spec, mode) pairs: {k1_what}")
     eps32 = torch.finfo(torch.float32).eps
     k2 = []
     for (spec, x, pts, v, mode), res in filter(None, spans.kept["k2_calls"]):
@@ -2919,6 +2987,511 @@ def phase_integral(n=DENSE_N, nq=8192, device="cuda") -> dict:
     return out["launches"]
 
 
+# -- parallel and native phases ---------------------------------------------------------
+
+#: The parallel phase's dense cell: the distributed factorization's block
+#: size (128 block-columns at N = 32,768).
+PAR_BLOCK = 256
+#: distributed_condition's weights against the dense engine's, relative to
+#: max |w|: both factor the same float64 Gram, in two blocked orders, whose
+#: results differ by about cond eps ~ 3e-9 at noise 1e-3 k(0) (cond ~3e7).
+#: The mean of those weights at a query, K_qX w, inherits the weights' error
+#: through sum_j |k_qj w_j|, the scale the gate is stated in (a mean that
+#: cancels can differ by more than this bound of max |mean|: it does, 1.9e-10
+#: against 1e-10, on the H100; PERF.md).
+PAR_W_BOUND = 1e-8
+#: The conditioner's IBVP posterior (192 anchors at noise 1e-5 appended by a
+#: Schur extension) against the dense engine's (anchors first): the mean
+#: relative to max |mean|, the variance relative to the prior variance it
+#: is a difference of (as DIAG_BOUND, with a block-order's margin).
+PAR_IBVP_MEAN_BOUND, PAR_IBVP_VAR_BOUND = 1e-9, 1e-9
+#: The two-rank run on one card (gloo, both ranks on cuda:0).
+PAR_TWO_RANK_N = 16384
+
+
+def parallel_spans() -> "Spans":
+    """The distributed regressor's kernel calls, each kept (as
+    :func:`grid_spans`): K1 from its Nystrom build (``parallel/iterative.gram``)
+    and from ``gram_matrix`` (``var``'s ``kxX``), K2 from it: the mean's
+    calls whole, the CG's as ``None``."""
+    from linpde_gp_tpu_torch.ops import gram as gram_module
+    from linpde_gp_tpu_torch.parallel import iterative as par_iterative
+
+    return Spans({"k1_blocks": (par_iterative, "gram"), "k1_gram_matrix": (gram_module, "gram"),
+                  "k2_calls": (par_iterative, "gram_matvec")},
+                 keep={"k1_blocks": _k1_sample, "k1_gram_matrix": _k1_sample, "k2_calls": _keep_mean_k2})
+
+
+def _true_relres(reg, w) -> float:
+    """``||(K + sigma^2 I) w - Y|| / ||Y||`` on the stored points, by K2 in
+    f64 (held to its plain version in the kernels phase)."""
+    import torch
+
+    from linpde_gp_tpu_torch.ops.gram import gram_matvec
+
+    X64, w64, y64 = reg.X.double(), w.double(), reg.Y.double()
+    r = gram_matvec(reg._obs_spec, X64, X64, w64, "f64") + reg.noise_variance * w64 - y64
+    return (torch.linalg.vector_norm(r) / torch.linalg.vector_norm(y64)).item()
+
+
+def _mean_gap_bound(reg, rho_a, rho_b, prior_var_max) -> float:
+    """How far two posterior means from weights with true relres ``rho_a``
+    and ``rho_b`` on one system can differ: with ``A = K + sigma^2 I`` and
+    the residuals ``r_a``, ``r_b``, the weights differ by ``A^{-1} (r_a -
+    r_b)``, so at a query ``q`` (Cauchy-Schwarz in ``A``'s inner product,
+    ``k_q^T A^{-1} k_q <= k(q, q)``, ``A >= sigma^2 I``) the means differ by
+    at most ``sqrt(k(q, q)) (rho_a + rho_b) ||Y|| / sigma``; at CG tol it is
+    ``2 tol ||Y|| sqrt(k(q, q)) / sigma``."""
+    import torch
+
+    y = torch.linalg.vector_norm(reg.Y.double()).item()
+    return float(np.sqrt(prior_var_max) * (rho_a + rho_b) * y / np.sqrt(reg.noise_variance))
+
+
+def _check_banded_call(banded, mode, tag, r) -> dict:
+    """A rank's banded kernel at ``r`` columns (r = 1 the CG's narrow route,
+    r = 256 the variance's multi-column one) on a random V against the
+    plain f64 version on the same points: f64 within 1e-12 of sum_j |k_ij
+    v_j| (bounded by the absolute terms' kernel), ff rounded row by row
+    from the f64 product and its pair within ``ROW_BOUND`` eps of that sum,
+    as the kernels phase holds them."""
+    import torch
+
+    from linpde_gp_tpu_torch.ops.banded import make_banded_matvec
+
+    g = torch.Generator(device=banded.device).manual_seed(r)
+    X0, X1 = banded.X0s[banded._inv0], banded.X1s[torch.argsort(banded._perm1)]
+    V = torch.randn((X1.shape[0], r), generator=g, device=banded.device, dtype=X1.dtype)
+    V = V[:, 0] if r == 1 else V
+    res = banded(V)
+    scale, terms = banded.spec
+    oracle = make_banded_matvec(banded.spec, X0.double(), X1.double(), mode="f64").plain(V.double())
+    absum = make_banded_matvec((abs(scale), abs_terms(terms)), X0.double(), X1.double(), mode="f64").plain(
+        V.double().abs())
+    if mode == "f64":
+        e = torch.nan_to_num((res - oracle).abs() / absum, nan=0.0).max().item()
+        check(e <= 1e-12, f"{tag}: banded kernel f64 at r = {r} vs plain f64: {e:.3e} of sum_j |k_ij v_j| <= 1e-12")
+        return dict(r=r, row_rel_err=e)
+    eps32 = torch.finfo(torch.float32).eps
+    e_row, e_pair = row_excess(res[0], oracle, absum, eps32), pair_excess(res, oracle, absum, eps32)
+    check(e_row <= ROW_BOUND and e_pair <= ROW_BOUND, f"{tag}: banded kernel ff at r = {r} is the f64 product "
+          f"rounded, row by row: excess {e_row:.3g}, ff pair {e_pair:.3g} eps sum_j|k_ij v_j| <= {ROW_BOUND:g}")
+    return dict(r=r, row_excess=e_row, pair_excess=e_pair)
+
+
+def run_parallel_iterative(mesh, path, mode, n, nq, rank, *, k0=None, tol=1e-5, maxiter=512, var_q=VAR_QUERIES):
+    """``DistributedIterativeGPRegressor`` on the heat benchmark problem (the
+    main phase's, N = ``n``, noise 1e-3 k(0)) or the Wendland cell's, the
+    launch counts set to 0 before its work (build, solve, mean at ``nq``,
+    ``var`` at ``var_q``: heat in f64, Wendland in both modes) and read just
+    after; then, outside that window: the true relres (f64), the
+    single-card ``IterativeGPRegressor`` on the same data (its mean within
+    :func:`_mean_gap_bound`, its f64 ``var`` within ``VAR_REL_BOUND`` of max
+    var), and the run's own K1, K2 and banded calls against their plain
+    versions (on a card).  Returns the measurements (``launches``)."""
+    import torch
+
+    from linpde_gp_tpu_torch.models.iterative import IterativeGPRegressor
+    from linpde_gp_tpu_torch.ops import _cuda
+    from linpde_gp_tpu_torch.parallel import DistributedIterativeGPRegressor
+
+    tag = f"parallel {path}[{mode}]"
+    dev = mesh.device
+    on_card = dev.type == "cuda"
+    if path == "heat":
+        X, Y, Xq = bench_data(n, nq)
+        prior, H = heat_problem(dev)
+        kw = dict(L=H, noise_variance=float(1e-3 * k0["obs"]), tol=tol, maxiter=maxiter, precond_rank=rank, mode=mode)
+        prior_var_max = 1.0
+    else:
+        X, _, Y, Xq = wendland_data(n, nq)
+        prior = wendland_prior(dev)
+        kw = dict(noise_variance=1e-3, tol=tol, maxiter=maxiter, precond_rank=rank, mode=mode)
+        prior_var_max = 2.0
+    X, Y = torch.from_numpy(X), torch.from_numpy(Y)
+    xq, xv = torch.from_numpy(Xq), torch.from_numpy(np.asarray(Xq[:var_q], np.float64))
+    out = dict(path=path, mode=mode, n=n, nq=nq, rank=rank, noise=kw["noise_variance"], world=mesh.size)
+    spans = parallel_spans()
+    _cuda.reset_launches()
+    with spans:
+        t0 = time.perf_counter()
+        reg = DistributedIterativeGPRegressor(prior, X, Y, mesh=mesh, **kw)
+        reg._preconditioner()
+        sync()
+        out["build_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        w = reg.representer_weights
+        sync()
+        out["solve_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mu = reg.mean(xq)
+        sync()
+        out["mean_s"] = time.perf_counter() - t0
+        var = None
+        if var_q and (path == "wendland" or mode == "f64"):
+            t0 = time.perf_counter()
+            var = reg.var(xv, block_size=256)
+            sync()
+            out["var_s"] = time.perf_counter() - t0
+    out["launches"] = dict(_cuda.launches)
+    out["iterations"], out["relres"] = reg.solve_info
+    check(bool(torch.isfinite(w).all()) and mu.shape == (nq,) and bool(torch.isfinite(mu).all()),
+          f"{tag}: weights and the mean at {nq} queries finite")
+    check(out["relres"] <= 100 * tol, f"{tag}: solver relres {out['relres']:.3e} <= {100 * tol:g}")
+    if path == "wendland":
+        check(reg._banded is not None, f"{tag}: the rank's banded schedule runs the CG "
+              f"({None if reg._banded is None else reg._banded.pair_fraction:.4g} of pairs)")
+    out["true_relres"] = _true_relres(reg, w)
+    check(out["true_relres"] <= 100 * tol, f"{tag}: true relres (f64) {out['true_relres']:.3e} <= {100 * tol:g}")
+
+    single = IterativeGPRegressor(prior, X, Y, device=dev, **kw)
+    single._preconditioner()
+    sync()
+    t0 = time.perf_counter()
+    w_s = single.representer_weights
+    sync()
+    out["single_solve_s"] = time.perf_counter() - t0
+    out["single_iterations"] = single.solve_info[0]
+    mu_s = single.mean(xq)
+    rho_s = _true_relres(single, w_s)
+    bound = _mean_gap_bound(reg, out["true_relres"], rho_s, prior_var_max)
+    gap = (mu.double() - mu_s.double()).abs().max().item()
+    out.update(single_true_relres=rho_s, mean_gap=gap, mean_gap_bound=bound,
+               mean_gap_rel=gap / mu_s.double().abs().max().item())
+    check(gap <= bound, f"{tag}: mean at {nq} queries vs the single-card regressor: {gap:.3e} <= {bound:.3e} "
+          f"(sqrt(k(q,q)) (rho + rho_1) ||Y|| / sigma, rho {out['true_relres']:.2e} and {rho_s:.2e})")
+    if var is not None:
+        prior_var = prior.cov(xv.to(dev))
+        check(bool(torch.isfinite(var).all()) and bool((var >= 0).all()) and bool((var <= prior_var * (1 + 1e-6)).all()),
+              f"{tag}: 0 <= var <= prior var at {var_q} queries; range [{var.min().item():.4e}, {var.max().item():.4e}]")
+        if mode == "f64" and path == "heat":
+            var_s = single.var(xv, block_size=256)
+            rel = ((var - var_s).abs().max() / var_s.abs().max()).item()
+            out["var_vs_single"] = rel
+            check(rel <= VAR_REL_BOUND, f"{tag}: var vs the single-card var: {rel:.3e} of max var <= {VAR_REL_BOUND:g}")
+    del single
+    # K1 keys (spec, mode): the Nystrom blocks', and kxX's (f64) where var
+    # ran; the Wendland cell's f64 kxX shares the Nystrom blocks' key.
+    keys = {(reg._obs_spec[1], mode)} | ({(reg._cross_spec[1], "plain" if mode == "plain" else "f64")}
+                                         if var is not None else set())
+    if on_card:
+        out["kernels"] = _check_grid_kernels(spans, tag, min_k1=len(keys), k1_what="the Nystrom blocks"
+                                             + (", kxX" if var is not None else ""))
+        if reg._banded is not None:
+            out["kernels"]["banded"] = [_check_banded_call(reg._banded, mode, tag, r) for r in (1, 256)]
+    log(f"{tag} " + json.dumps(out))
+    return out
+
+
+def _two_rank_heat(n, nq, rank, noise, tol):
+    """One rank of the two-rank run on one card: the heat problem at ``n``
+    points through ``DistributedIterativeGPRegressor`` (f64), its mean at
+    ``nq`` queries; returns numpy results, seconds and this rank's launches."""
+    import torch
+
+    from linpde_gp_tpu_torch.ops import _cuda
+    from linpde_gp_tpu_torch.parallel import DistributedIterativeGPRegressor, make_mesh
+
+    mesh = make_mesh()
+    prior, H = heat_problem()
+    X, Y, Xq = bench_data(n, nq)
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    reg = DistributedIterativeGPRegressor(prior, torch.from_numpy(X), torch.from_numpy(Y), mesh=mesh, L=H,
+                                          noise_variance=noise, tol=tol, precond_rank=rank, mode="f64")
+    w = reg.representer_weights
+    sync()
+    solve_s = time.perf_counter() - t0
+    mu = reg.mean(torch.from_numpy(Xq))
+    return dict(device=str(mesh.device), world=mesh.size, solve_s=solve_s, info=reg.solve_info,
+                w=w.cpu().numpy(), mean=mu.cpu().numpy(), launches=dict(_cuda.launches))
+
+
+def run_two_ranks_one_card(k0, n=PAR_TWO_RANK_N, nq=1024, tol=1e-5) -> dict:
+    """Two ranks on the one card over gloo with CUDA tensors (``parallel/
+    launch.spawn``): the heat problem at ``n`` points in f64.  Both ranks must
+    return the same weights bit for bit, and the mean must lie within
+    :func:`_mean_gap_bound` of the single-card regressor's.  Returns the
+    measurements, with both ranks' launches summed."""
+    import torch
+
+    from linpde_gp_tpu_torch.models.iterative import IterativeGPRegressor
+    from linpde_gp_tpu_torch.parallel.launch import spawn
+
+    tag = f"parallel two ranks on one card (gloo, N = {n})"
+    noise, rank = float(1e-3 * k0["obs"]), min(8192, n // 4)
+    t0 = time.perf_counter()
+    ranks = spawn(_two_rank_heat, 2, (n, nq, rank, noise, tol), timeout=600, backend="gloo", device="cuda")
+    out = dict(n=n, nq=nq, rank=rank, wall_s=time.perf_counter() - t0, devices=[r["device"] for r in ranks],
+               solve_s=[r["solve_s"] for r in ranks], info=ranks[0]["info"])
+    check(all(np.array_equal(r["w"], ranks[0]["w"]) and np.array_equal(r["mean"], ranks[0]["mean"]) for r in ranks),
+          f"{tag}: both ranks hold the same weights and mean")
+    X, Y, Xq = bench_data(n, nq)
+    prior, H = heat_problem()
+    single = IterativeGPRegressor(prior, torch.from_numpy(X), torch.from_numpy(Y), L=H, noise_variance=noise, tol=tol,
+                                  precond_rank=rank, mode="f64", device="cuda")
+    single._preconditioner()
+    sync()
+    t0 = time.perf_counter()
+    w_s = single.representer_weights
+    sync()
+    out.update(single_solve_s=time.perf_counter() - t0, single_info=single.solve_info)
+    rho = _true_relres(single, torch.as_tensor(ranks[0]["w"]).cuda())
+    bound = _mean_gap_bound(single, rho, _true_relres(single, w_s), 1.0)
+    gap = float(np.max(np.abs(ranks[0]["mean"] - single.mean(torch.from_numpy(Xq)).cpu().numpy())))
+    out.update(true_relres=rho, mean_gap=gap, mean_gap_bound=bound)
+    check(rho <= 100 * tol and gap <= bound, f"{tag}: true relres {rho:.3e} <= {100 * tol:g}; mean vs the single-card "
+          f"regressor {gap:.3e} <= {bound:.3e}")
+    out["launches"] = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+    log(f"{tag} " + json.dumps(out))
+    return out
+
+
+def run_parallel_dense(mesh, n=DENSE_N, nq=8192, var_q=256, noise_rel=1e-3, anchor_noise=1e-5, n_ic=96,
+                       n_bc=48) -> dict:
+    """The dense distributed cell at ``n`` points (f64): ``distributed_condition``
+    on ``H k H*`` with random data (seed 0, as bench.py draws it) in layouts
+    auto (cyclic on one rank), contiguous and 2d (forced on the 1 x 1 mesh),
+    its weights and their mean at ``nq`` queries (K2) against the dense
+    engine's on the same data (the mean in units of sum_j |k_qj w_j|, by K2
+    on the absolute terms, outside the window); then ``DistributedConditioner`` on the IBVP
+    (``H u = 0`` at the points, then the 192 anchors by one Schur extension)
+    and ``posterior_eval`` at ``nq`` queries against the dense engine's IBVP
+    posterior (mean, and std at ``var_q``).  Each run sets the launch counts
+    to 0 before its work and reads them after; the dense engine's references
+    run outside those windows.  Peak device memory per run < 40 GB.  The
+    auto run's K1 block and the mean's K2 calls are held to their plain
+    versions (:func:`_check_dense_kernels`; on a card).  Returns the
+    measurements."""
+    import torch
+
+    import linpde_gp_tpu_torch as lgt
+    from linpde_gp_tpu_torch.ops import _cuda
+    from linpde_gp_tpu_torch.ops import gram as gram_module
+    from linpde_gp_tpu_torch.ops.gram import kernel_term_specs
+    from linpde_gp_tpu_torch.ops.transforms import apply_operator_to_kernel
+    from linpde_gp_tpu_torch.parallel import DistributedConditioner, distributed_condition
+    from linpde_gp_tpu_torch.specs import spec_diagonal
+
+    tag = "parallel dense"
+    dev = mesh.device
+    on_card = dev.type == "cuda"
+    prior, H = heat_problem(dev)
+    k = prior.cov
+    k_obs = apply_operator_to_kernel(H, apply_operator_to_kernel(H, k, argnum=1), argnum=0)
+    k_Hx, cross_spec = apply_operator_to_kernel(H, k, argnum=0), kernel_term_specs(apply_operator_to_kernel(H, k, argnum=1))
+    abs_spec = (abs(cross_spec[0]), abs_terms(cross_spec[1]))
+    X, Xq = ibvp_data(n, nq)
+    Xa, Ya = ibvp_anchors(n_ic, n_bc)
+    Yr = bench_data(n, 1)[1]
+    noise = noise_rel * spec_diagonal(heat_specs()["obs"])
+    out = dict(n=n, nq=nq, block=PAR_BLOCK, noise=noise, world=mesh.size)
+    total = {name: 0 for name in KERNELS}
+
+    post = prior.condition_on_observations(Yr, X=X, L=H, b=lgt.Normal(np.zeros(n), noise * np.ones(n)))
+    w_ref, mu_ref = post.representer_weights, post.mean(Xq)
+    del post
+    spans = Spans({"k1_gram_blocks": (gram_module, "gram"), "k2_calls": (gram_module, "gram_matvec")},
+                  keep={"k1_gram_blocks": _k1_sample, "k2_calls": lambda args, res: (args, res)})
+    Xt, Xqt = torch.from_numpy(X).to(dev).double(), torch.from_numpy(Xq).to(dev).double()
+
+    def fresh():
+        _cuda.reset_launches()
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+
+    for layout in ("auto", "contiguous", "2d"):
+        fresh()
+        with spans if layout == "auto" else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            w, chol = distributed_condition(k_obs, X, Yr, mesh=mesh, noise_variance=noise, block_size=PAR_BLOCK,
+                                            jitter=0.0, layout=layout)
+            sync()
+            cond_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            mu = gram_module.gram_matvec(cross_spec, Xqt, Xt, w, "f64")
+            sync()
+            mean_s = time.perf_counter() - t0
+        launches = dict(_cuda.launches)
+        peak = peak_gb()
+        del chol
+        w_err = ((w - w_ref).abs().max() / w_ref.abs().max()).item()
+        m_err = ((mu - mu_ref).abs().max() / mu_ref.abs().max()).item()
+        m_sum = ((mu - mu_ref).abs() / gram_module.gram_matvec(abs_spec, Xqt, Xt, w.abs(), "f64")).max().item()
+        out[layout] = dict(condition_s=cond_s, mean_s=mean_s, peak_gb=peak, w_rel_err=w_err, mean_rel_err=m_err,
+                           mean_rel_abs_sum=m_sum, launches=launches)
+        for key in total:
+            total[key] += launches[key]
+        check(w_err <= PAR_W_BOUND, f"{tag}[{layout}]: weights vs the dense engine {w_err:.3e} of max |w| <= "
+              f"{PAR_W_BOUND:g}; {cond_s:.3f} s")
+        check(m_sum <= PAR_W_BOUND, f"{tag}[{layout}]: mean at {nq} queries vs the dense engine {m_sum:.3e} of "
+              f"sum_j |k_qj w_j| <= {PAR_W_BOUND:g} ({m_err:.3e} of max |mean|)")
+        check(peak < 40.0, f"{tag}[{layout}]: peak device memory {peak:.2f} GB < 40")
+    del w, mu
+    if on_card:
+        torch.cuda.empty_cache()
+        out["kernels"] = _check_dense_kernels(spans, tag, True)
+    del spans
+
+    fresh()
+    t0 = time.perf_counter()
+    cond = DistributedConditioner(mesh=mesh, block_size=PAR_BLOCK)
+    cond.condition(k_obs, X, np.zeros(n), noise_variance=noise, jitter=0.0)
+    sync()
+    out["conditioner_condition_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cond.extend([k_Hx], k, Xa, Ya, noise_variance=anchor_noise, jitter=0.0)
+    sync()
+    out["conditioner_extend_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mean, std = cond.posterior_eval([k_Hx, k], k, Xq, with_std=True, query_block_size=1024)
+    sync()
+    out["posterior_eval_s"] = time.perf_counter() - t0
+    launches = dict(_cuda.launches)
+    out["conditioner"] = dict(launches=launches, peak_gb=peak_gb())
+    for key in total:
+        total[key] += launches[key]
+    del cond
+    if on_card:
+        torch.cuda.empty_cache()
+    cuts = (0, n_ic, n_ic + n_bc, n_ic + 2 * n_bc)
+    post = condition_dense_ibvp(prior, H, X, Xa, Ya, cuts, noise, anchor_noise)
+    mu_e, std_e = post.mean(Xq), post.std(Xq[:var_q])
+    del post
+    m_err = ((mean - mu_e).abs().max() / mu_e.abs().max()).item()
+    prior_var = prior.cov(torch.from_numpy(Xq[:var_q]).to(dev).double())
+    v_err = ((std[:var_q] ** 2 - std_e ** 2).abs() / prior_var).max().item()
+    rmse = float(np.sqrt(np.mean((mean.cpu().numpy() - u_star(Xq)) ** 2)))
+    out["conditioner"].update(mean_rel_err=m_err, var_rel_prior=v_err, rmse=rmse)
+    check(bool(torch.isfinite(mean).all()) and bool(torch.isfinite(std).all()), f"{tag}: posterior_eval finite")
+    check(m_err <= PAR_IBVP_MEAN_BOUND, f"{tag}: conditioner + extension, posterior_eval mean at {nq} queries vs the "
+          f"dense engine {m_err:.3e} of max |mean| <= {PAR_IBVP_MEAN_BOUND:g}; RMSE vs u* {rmse:.3e}")
+    check(v_err <= PAR_IBVP_VAR_BOUND, f"{tag}: posterior_eval var (std^2) at {var_q} queries vs the dense engine "
+          f"{v_err:.3e} of the prior variance <= {PAR_IBVP_VAR_BOUND:g}")
+    check(out["conditioner"]["peak_gb"] < 40.0, f"{tag}: conditioner peak {out['conditioner']['peak_gb']:.2f} GB < 40")
+    out["launches"] = total
+    log(f"{tag} " + json.dumps(out))
+    return out
+
+
+def phase_parallel(specs, k0, n, nq, rank) -> dict:
+    """The parallel layer at world size 1 over NCCL on cuda:0 (module
+    docstring, phase 12): the gram-free heat and Wendland cells, the dense
+    distributed cell, two ranks on the one card over gloo, and the dry run.
+    Returns the launches of the runs (their windows only)."""
+    import torch.distributed as dist
+
+    from linpde_gp_tpu_torch.parallel import make_mesh
+    from linpde_gp_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    mesh = make_mesh(1)
+    check(mesh.size == 1 and dist.get_backend() == "nccl" and mesh.device.type == "cuda",
+          f"parallel: a world of {mesh.size} over {dist.get_backend()} on {mesh.device}")
+    total = {name: 0 for name in KERNELS}
+    runs = [("heat", "ff"), ("heat", "f64"), ("wendland", "ff"), ("wendland", "f64"), ("dense", "f64"),
+            ("two ranks", "f64")]
+    for path, mode in runs:
+        try:
+            if path in ("heat", "wendland"):
+                res = run_parallel_iterative(mesh, path, mode, n, nq, rank if path == "heat" else WENDLAND_RANK, k0=k0)
+            elif path == "dense":
+                res = run_parallel_dense(mesh, DENSE_N, nq)
+            else:
+                res = run_two_ranks_one_card(k0)
+        except Exception as exc:  # noqa: BLE001 - report, go on with the next run, fail at the end
+            traceback.print_exc()
+            failures.append(f"parallel[{path} {mode}]: {type(exc).__name__}: {exc}")
+            continue
+        for name in total:
+            total[name] += res["launches"][name]
+        log(f"parallel[{path} {mode}] launches {res['launches']}")
+    try:
+        t0 = time.perf_counter()
+        errs = dryrun_multichip(1, device="cuda")
+        log(f"parallel dryrun_multichip(1) {time.perf_counter() - t0:.1f} s " + json.dumps(errs))
+    except Exception as exc:  # noqa: BLE001 - report and fail at the end
+        traceback.print_exc()
+        failures.append(f"parallel[dryrun]: {type(exc).__name__}: {exc}")
+    for name in KERNELS:
+        check(total[name] > 0, f"parallel paths launched {name} {total[name]} times")
+    dist.destroy_process_group()
+    return total
+
+
+def phase_native(n=4096) -> dict:
+    """The g++ host engine (``native/``) built on this machine and held to
+    the plain float64 version on the CPU at ``n x n`` (the heat observation
+    spec, random points of [0, 5] x [-1, 1]): the Gram within 1e-13 of max
+    |K|, the matvec within 1e-12 of max |Kv|, and ``ops/gram.gram`` on f64
+    CPU tensors routed to it (the same Gram, bit for bit).  Logs both
+    routes' seconds beside the host's CPU model.  Launches no card kernel."""
+    import os
+    import platform
+
+    import torch
+
+    from linpde_gp_tpu_torch import native
+    from linpde_gp_tpu_torch.ops.gram import gram, gram_matvec_plain, gram_plain
+    from linpde_gp_tpu_torch.specs import load_specs
+
+    tag = "native"
+    check(native.available(), f"{tag}: g++ present")
+    fields = {}
+    with contextlib.suppress(OSError), open("/proc/cpuinfo") as fh:
+        for line in fh:
+            key, _, val = line.partition(":")
+            fields.setdefault(key.strip(), val.strip())
+    cpu = fields.get("model name") or " ".join(
+        f"{k} {fields[k]}" for k in ("vendor_id", "cpu family", "model") if k in fields) or "model not reported"
+    cpu += f" ({platform.machine()})"
+    scale, terms = load_specs()["obs"]
+    rng = np.random.default_rng(0)
+    X0, X1 = (torch.from_numpy(np.stack([rng.uniform(0, 5, n), rng.uniform(-1, 1, n)], -1)) for _ in range(2))
+    v = torch.from_numpy(rng.standard_normal(n))
+    t0 = time.perf_counter()
+    eng = native.engine_for_spec(scale, terms)
+    out = dict(n=n, cpu=cpu, cpu_count=os.cpu_count(), torch_threads=torch.get_num_threads(),
+               build_s=time.perf_counter() - t0, built=list(native.engine.builds))
+
+    def best(fn, reps=3):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            res = fn()
+            times.append(time.perf_counter() - t0)
+        return min(times), res
+
+    out["engine_gram_s"], G = best(lambda: eng.gram(X0, X1))
+    out["engine_matvec_s"], Kv = best(lambda: eng.matvec(X0, X1, v))
+    out["plain_gram_s"], P = best(lambda: scale * gram_plain(terms, X0, X1, "f64"), reps=1)
+    out["plain_matvec_s"], Pv = best(lambda: gram_matvec_plain((scale, terms), X0, X1, v, "f64"), reps=1)
+    out["gram_rel_err"] = ((G - P).abs().max() / P.abs().max()).item()
+    out["matvec_rel_err"] = ((Kv - Pv).abs().max() / Pv.abs().max()).item()
+    if out["gram_rel_err"] > 1e-13:  # where, and which side: each pair again on its own, and the Gram again
+        i, j = divmod(int((G - P).abs().argmax()), n)
+        again = eng.gram(X0, X1)
+        out["gram_worst"] = dict(i=i, j=j, engine=G[i, j].item(), plain=P[i, j].item(),
+                                 engine_pair=eng.gram(X0[i:i + 1], X1[j:j + 1])[0, 0].item(),
+                                 plain_pair=scale * gram_plain(terms, X0[i:i + 1], X1[j:j + 1], "f64")[0, 0].item(),
+                                 engine_again_rel_err=((again - P).abs().max() / P.abs().max()).item(),
+                                 bad_entries=int(((G - P).abs() > 1e-13 * P.abs().max()).sum()))
+    routed = gram(terms, X0, X1, "f64")
+    ref = native.engine_for_spec(1.0, terms).gram(X0, X1)
+    check(out["gram_rel_err"] <= 1e-13, f"{tag}: Gram {n}x{n} vs the plain f64 version {out['gram_rel_err']:.3e} of "
+          "max |K| <= 1e-13")
+    check(out["matvec_rel_err"] <= 1e-12, f"{tag}: matvec vs the plain f64 version {out['matvec_rel_err']:.3e} of "
+          "max |Kv| <= 1e-12")
+    check(torch.equal(routed, ref), f"{tag}: ops/gram.gram on f64 CPU tensors takes the engine")
+    log(f"{tag} ({cpu}, {os.cpu_count()} CPUs): engine Gram {out['engine_gram_s']:.3f} s, matvec "
+        f"{out['engine_matvec_s']:.3f} s; plain torch Gram {out['plain_gram_s']:.3f} s, matvec {out['plain_matvec_s']:.3f} s")
+    log(f"{tag} " + json.dumps(out))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -2944,7 +3517,7 @@ def main(argv=None) -> int:
         f"float32_matmul_precision={torch.get_float32_matmul_precision()}")
 
     timing, banded_timing = {}, {}
-    launches = {"main": {}, "dense": {}, "mean": {}, "grid": {}, "fem": {}, "integral": {}}
+    launches = {"main": {}, "dense": {}, "mean": {}, "grid": {}, "fem": {}, "integral": {}, "parallel": {}}
     for phase in PHASES:
         if phase not in phases and phase not in ("device", "build"):
             continue
@@ -2974,8 +3547,12 @@ def main(argv=None) -> int:
                 launches["grid"] = phase_grid(timing)
             elif phase == "fem":
                 launches["fem"] = phase_fem(nq)
-            else:
+            elif phase == "integral":
                 launches["integral"] = phase_integral(DENSE_N, nq)
+            elif phase == "parallel":
+                launches["parallel"] = phase_parallel(specs, k0, n, nq, rank)
+            else:
+                phase_native()
         except Exception as exc:  # noqa: BLE001 - every phase reports, then the script fails
             traceback.print_exc()
             failures.append(f"phase {phase}: {type(exc).__name__}: {exc}")

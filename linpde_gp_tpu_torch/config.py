@@ -61,6 +61,14 @@ class _Config:
     #: (``ops/linalg/refine.py``).
     solve_refinement: bool = False
 
+    #: Route float64 Gram assembly and Gram matvecs of CPU tensors through
+    #: the g++ host engine (``native/``), as the JAX package routes its
+    #: host path (``config.py:80-87`` there).
+    use_native_host_engine: bool = True
+
+    #: Pairs (rows * cols) from which the host engine takes a CPU call.
+    native_gram_threshold: int = 1 << 20
+
     def set(self, **kwargs):
         for key, value in kwargs.items():
             if not hasattr(self, key):

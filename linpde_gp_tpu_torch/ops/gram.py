@@ -10,9 +10,13 @@ nested Horner sweep per group.
 Routing: a CUDA tensor goes to the hand-written kernels of
 ``csrc/gram.cuh``, compiled per spec structure (through ``ops/_cuda.py``);
 a CPU tensor goes to the plain PyTorch version in this module
-(:func:`gram_plain`, :func:`gram_matvec_plain`).  There is no other route
-and no fallback.  :func:`gram_matrix` takes a kernel object and routes
-through :func:`gram`.  K2 takes one of two routes by the number r of
+(:func:`gram_plain`, :func:`gram_matvec_plain`), except in mode f64 from
+``config.native_gram_threshold`` pairs, where it goes to the g++ host
+engine (``native/``; ``pallas_gram.py:520-531``, ``:555-590`` of the JAX
+package) if a toolchain is present.  Modes plain and ff keep their plain
+versions on the CPU: there they stand for the card's arithmetic, and the
+engine is float64.  There is no other route and no fallback.
+:func:`gram_matrix` takes a kernel object and routes through :func:`gram`.  K2 takes one of two routes by the number r of
 right-hand-side columns (``csrc/gram.cuh``): a few output rows per thread
 for r <= 4, and for r > 4 a route that evaluates each pair once per block
 of 64 to 256 columns.
@@ -37,7 +41,7 @@ import functools
 import numpy as np
 import torch
 
-from ..config import mode_dtype, resolve_device, resolve_mode
+from ..config import config, mode_dtype, resolve_device, resolve_mode
 from . import ff
 
 # A term spec is a tuple: (coeff, factors) with factors a tuple of
@@ -351,6 +355,17 @@ def _as_rhs(v, X1, mode):
     return (hi.contiguous(), None if lo is None else lo.contiguous()), vector
 
 
+def _native(spec, mode, n0: int, n1: int):
+    """The host engine for a CPU call (``pallas_gram.py:520-531`` of the JAX
+    package), or ``None``: mode f64, ``config.use_native_host_engine``,
+    ``n0 * n1 >= config.native_gram_threshold`` and a toolchain present."""
+    if mode != "f64" or not config.use_native_host_engine or n0 * n1 < config.native_gram_threshold:
+        return None
+    from .. import native
+
+    return native.engine_for_spec(*spec)
+
+
 def _check_same_device(*ts):
     devs = {t.device for t in ts}
     if len(devs) != 1:
@@ -361,7 +376,8 @@ def gram(terms, X0, X1, mode=None) -> torch.Tensor:
     """The ``(n0, n1)`` Gram of a sum-of-products kernel (no outer scale,
     like ``pallas_gram``).  ``X0``/``X1``: ``(n, d)`` points; the result
     has the mode's dtype and the points' device.  CUDA tensors launch
-    K1; CPU tensors take :func:`gram_plain`."""
+    K1; CPU tensors take the host engine (mode f64, large calls: see
+    :func:`_native`) or :func:`gram_plain`."""
     mode = resolve_mode(mode)
     X0, X1 = _as_points(X0, mode), _as_points(X1, mode)
     _check_same_device(X0, X1)
@@ -371,6 +387,9 @@ def gram(terms, X0, X1, mode=None) -> torch.Tensor:
         return _cuda.gram(_collapse_terms(tuple(terms)), X0, X1, mode)
     if X0.device.type != "cpu":
         raise ValueError(f"no route for device {X0.device}")
+    eng = _native((1.0, tuple(terms)), mode, X0.shape[0], X1.shape[0])
+    if eng is not None:
+        return eng.gram(X0, X1)
     return gram_plain(terms, X0, X1, mode)
 
 
@@ -402,7 +421,8 @@ def gram_matvec(spec, X0, X1, v, mode=None):
     ``(scale, terms)`` spec.  ``v``: ``(n1,)`` or ``(n1, r)``, or in mode
     ff also an ff pair ``(hi, lo)`` of those.  Mode ff returns the ff pair
     ``(hi, lo)`` of the result (``hi``: its float32 rounding).  CUDA
-    tensors launch K2; CPU tensors take :func:`gram_matvec_plain`."""
+    tensors launch K2; CPU tensors take the host engine (mode f64, large
+    calls: see :func:`_native`) or :func:`gram_matvec_plain`."""
     mode = resolve_mode(mode)
     X0, X1 = _as_points(X0, mode), _as_points(X1, mode)
     _check_same_device(X0, X1)
@@ -415,7 +435,13 @@ def gram_matvec(spec, X0, X1, v, mode=None):
         if vector:
             out = (out[0][:, 0], out[1][:, 0]) if mode == "ff" else out[:, 0]
     elif X0.device.type == "cpu":
-        out = gram_matvec_plain(spec, X0, X1, v, mode)
+        eng = _native(spec, mode, X0.shape[0], X1.shape[0])
+        if eng is not None:
+            (v, _), vector = _as_rhs(v, X1, mode)
+            out = eng.matvec(X0, X1, v)
+            out = out[:, 0] if vector else out
+        else:
+            out = gram_matvec_plain(spec, X0, X1, v, mode)
     else:
         raise ValueError(f"no route for device {X0.device}")
     return out

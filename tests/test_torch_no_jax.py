@@ -92,6 +92,18 @@ _MODULES = [
     "linpde_gp_tpu_torch.ops.functionals.weak_forms",
     "linpde_gp_tpu_torch.ops.transforms.integrals_exact",
     "linpde_gp_tpu_torch.ops.kernels.parametric",
+    "linpde_gp_tpu_torch.native",
+    "linpde_gp_tpu_torch.native.engine",
+    "linpde_gp_tpu_torch.parallel",
+    "linpde_gp_tpu_torch.parallel.mesh",
+    "linpde_gp_tpu_torch.parallel.launch",
+    "linpde_gp_tpu_torch.parallel.gram",
+    "linpde_gp_tpu_torch.parallel.cholesky",
+    "linpde_gp_tpu_torch.parallel.extend",
+    "linpde_gp_tpu_torch.parallel.solve",
+    "linpde_gp_tpu_torch.parallel.posterior",
+    "linpde_gp_tpu_torch.parallel.iterative",
+    "linpde_gp_tpu_torch.parallel.dryrun",
 ]
 
 
@@ -125,6 +137,18 @@ def test_port_imports_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")
+
+
+def test_spawned_rank_imports_no_jax():
+    """A rank spawned by ``parallel/launch.spawn`` from this process (which
+    holds JAX) runs a case of the port and holds no module of JAX or of the
+    JAX package."""
+    from linpde_gp_tpu_torch.parallel.dryrun import rank_cases
+    from linpde_gp_tpu_torch.parallel.launch import spawn
+
+    cases = [("A", "cholesky", dict(A=[[4.0, 2.0], [2.0, 3.0]], nb=1, layout="cyclic"))]
+    (out,) = spawn(rank_cases, 1, (cases,), timeout=120)
+    assert out["world"] == 1 and out["jax_loaded"] == []
 
 
 def _sources():
