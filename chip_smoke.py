@@ -258,16 +258,41 @@ Phases, each printed as it finishes:
               1e-13 of max |K|, matvec within 1e-12 of max |Kv|,
               ``ops/gram.gram`` on f64 CPU tensors routed to it; both routes'
               seconds logged beside the host's CPU model.  No card kernel.
+14. surface - the port's ``entry()`` (``linpde_gp_tpu_torch/entry.py``: the
+              JAX package's ``__graft_entry__.entry()`` heat posterior, 5 IC,
+              2 x 12 BC and 12 x 8 PDE points on the dense engine) on the card
+              inside ``utils.profiling.trace`` and a ``StageTimer``, the launch
+              counts set to 0 just before and read just after: mean and std on
+              the 16 x 16 grid within 1e-10 of max |mean| and max std of the
+              same ``entry()`` on the CPU (run by the build phase); K1 and K2
+              launched, by the counts and in the exported Chrome trace
+              (``build/surface_trace/trace.json``).  Logged: the stage seconds,
+              the trace's kernels and the card's busy share of the stages
+              (kernel time in the trace over the stages' wall time).
+15. experiments - the port's nine numerics runs
+              (``linpde_gp_tpu_torch/experiments/run_all.RUNS``: poisson_1d at
+              n = 3 and 20, poisson_2d, heat_1d, poisson_fem,
+              poisson_1d_inverse_rhs, cpu_thermal_1d, its joint model,
+              cpu_thermal_2d) on the card, each with the launch counts set to 0
+              just before and read just after, their metrics held to the
+              port's CPU run of the same script (made by the build phase) at
+              relative 1e-6, the round-off metrics at their floors
+              (``experiments/common.py``); each script's own gates hold.
+              Logged: each run's seconds on the card and on the CPU, and its
+              launches.
+The build phase runs ``entry()`` and the nine runs on the CPU first, and
+builds the kernel module of every spec they hand to the kernels.
 
 The line before the last is a JSON object with one entry per kernel: its
 ff time at the main path's shape beside its plain version's, its bound
 (``bound_ms``: the larger of the operations the work needs, from the
 generator's per-pair counts, over the H100 SXM's peak rate of their
 pipe, and its bytes over the memory rate; :data:`PEAK`) and its launches
-in the main, dense, mean, grid, fem, integral and parallel phases
-(``launches_by_path``: the main phase's runs, the dense engine's own work,
-the mean path's runs, the grid path's runs, the checked GP-FEM run, the
-integral route and the parallel layer's runs, apart).  The last line is ``{"ok": true, "device":
+in the main, dense, mean, grid, fem, integral, parallel, surface and
+experiments phases (``launches_by_path``: the main phase's runs, the dense
+engine's own work, the mean path's runs, the grid path's runs, the checked
+GP-FEM run, the integral route, the parallel layer's runs, ``entry()`` and
+the nine experiment runs, apart).  The last line is ``{"ok": true, "device":
 {...}}``, printed only if every phase passed.  The script never imports JAX.
 """
 
@@ -285,7 +310,7 @@ import traceback
 import numpy as np
 
 PHASES = ("device", "build", "kernels", "timing", "main", "dense", "mean", "symbolic", "grid", "fem", "integral",
-          "parallel", "native")
+          "parallel", "native", "surface", "experiments")
 # name -> (TPU kernel(s) it replaces, label, source)
 KERNELS = {
     "gram": ("linpde_gp_tpu/ops/pallas_gram.py:277", "K1", "linpde_gp_tpu_torch/csrc/gram.cuh"),
@@ -632,6 +657,7 @@ def phase_build():
     from linpde_gp_tpu_torch.ops.gram import _collapse_terms
 
     specs = path_specs()
+    specs.update(cpu_reference_specs())
     structures = {}
     for name, (_, terms) in specs.items():
         st = _cuda.structure_of(_collapse_terms(tuple(terms)))
@@ -3492,6 +3518,150 @@ def phase_native(n=4096) -> dict:
     return out
 
 
+#: The port's CPU runs of ``entry()`` and of the experiments (the surface
+#: and experiments phases' references), made once by
+#: :func:`cpu_reference_specs`.
+CPU_RUNS: dict = {}
+#: Kernel names of K1 and K2 in a profiler trace (``csrc/gram.cuh``).
+K1_NAMES, K2_NAMES = ("gram_kernel",), ("gram_matvec_kernel", "gram_matmat_kernel")
+#: The surface phase's bound on the card's mean (std) against the CPU's,
+#: relative to max |mean| (max std).
+SURFACE_BOUND = 1e-10
+
+
+def cpu_reference_specs() -> dict:
+    """Run the port's ``entry()`` and its nine experiment runs on the CPU
+    (the references of the surface and experiments phases, kept in
+    :data:`CPU_RUNS`) and return every ``(scale, terms)`` spec they hand to
+    ``ops/gram.gram`` / ``gram_matvec``, so that the build phase builds
+    their kernel modules in parallel rather than one at a time at first use
+    on the card."""
+    from linpde_gp_tpu_torch.entry import entry
+    from linpde_gp_tpu_torch.experiments.run_all import run_all
+    from linpde_gp_tpu_torch.ops import gram as gram_module
+
+    seen = {}
+
+    def record(fn, spec_of):
+        def wrapper(*args, **kwargs):
+            scale, terms = spec_of(args)
+            seen.setdefault(repr(terms), (scale, tuple(terms)))
+            return fn(*args, **kwargs)
+
+        return wrapper
+
+    saved = gram_module.gram, gram_module.gram_matvec
+    gram_module.gram = record(saved[0], lambda a: (1.0, a[0]))
+    gram_module.gram_matvec = record(saved[1], lambda a: a[0])
+    try:
+        t0 = time.perf_counter()
+        fn, (xq,) = entry(device="cpu")
+        mean, std = fn(xq)
+        CPU_RUNS["entry"] = (xq, mean, std, time.perf_counter() - t0)
+        CPU_RUNS["experiments"] = run_all("cpu")
+    finally:
+        gram_module.gram, gram_module.gram_matvec = saved
+    log(f"cpu references: entry {CPU_RUNS['entry'][3]:.2f} s, experiments "
+        f"{sum(r[2] for r in CPU_RUNS['experiments']):.2f} s; {len(seen)} specs")
+    return {f"cpu_ref_{i}": spec for i, spec in enumerate(seen.values())}
+
+
+def trace_kernels(path) -> list[tuple[str, float]]:
+    """``(name, microseconds)`` of each device kernel in a ``torch.profiler``
+    Chrome trace."""
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    return [(e.get("name", ""), float(e.get("dur", 0.0))) for e in events if e.get("cat") == "kernel"]
+
+
+def phase_surface(device="cuda") -> dict:
+    """The port's ``entry()`` on the card inside ``utils.profiling.trace``
+    and a ``StageTimer`` (build, forward), the launch counts set to 0 just
+    before and read just after: mean and std (float64) within
+    ``SURFACE_BOUND`` of max |mean| and max std of the same ``entry()`` on
+    the CPU; K1 and K2 launched by the counts and in the exported trace;
+    finite values of shape (256,), on the card.  Logs the stage seconds and
+    the kernels of the trace."""
+    import torch
+
+    from linpde_gp_tpu_torch.entry import entry
+    from linpde_gp_tpu_torch.ops import _cuda
+    from linpde_gp_tpu_torch.utils.profiling import StageTimer, trace
+
+    tag = "surface"
+    logdir = _cuda.BUILD_DIR / "surface_trace"
+    timer = StageTimer()
+    _cuda.reset_launches()
+    with trace(str(logdir)):
+        with timer("build"):
+            fn, (xq,) = entry(device=device)
+        with timer("forward"):
+            mean, std = fn(xq)
+    launches = dict(_cuda.launches)
+    xq_c, mean_c, std_c, _ = CPU_RUNS["entry"]
+    kernels = trace_kernels(logdir / "trace.json")
+    names = [name for name, _ in kernels]
+    k1 = sum(any(k in n for k in K1_NAMES) for n in names)
+    k2 = sum(any(k in n for k in K2_NAMES) for n in names)
+    check(mean.is_cuda and std.is_cuda and mean.dtype == torch.float64 and tuple(mean.shape) == (256,)
+          and tuple(std.shape) == (256,), f"{tag}: mean and std float64 (256,) on the card")
+    check(bool(torch.isfinite(mean).all() and torch.isfinite(std).all()), f"{tag}: finite mean and std")
+    check(torch.equal(xq.cpu(), xq_c), f"{tag}: the same 16 x 16 query grid")
+    err_m = ((mean.cpu() - mean_c).abs().max() / mean_c.abs().max()).item()
+    err_s = ((std.cpu() - std_c).abs().max() / std_c.max()).item()
+    check(err_m <= SURFACE_BOUND, f"{tag}: mean vs the CPU's {err_m:.3e} of max |mean| <= {SURFACE_BOUND:g}")
+    check(err_s <= SURFACE_BOUND, f"{tag}: std vs the CPU's {err_s:.3e} of max std <= {SURFACE_BOUND:g}")
+    check(launches["gram"] > 0 and launches["gram_matvec"] + launches["gram_matvec_wide"] > 0,
+          f"{tag}: K1 and K2 launched (counts {launches})")
+    check(k1 > 0 and k2 > 0, f"{tag}: the profiler trace records K1 ({k1}) and K2 ({k2}) launches")
+    # The card's busy share of the traced stages: kernel time (one stream, so
+    # no overlap) over their synchronized wall time.
+    busy = 1e-6 * sum(us for _, us in kernels) / sum(timer.stages.values())
+    out = dict(stages_s=timer.summary(), launches=launches, trace_kernels=sorted(set(names)), mean_rel_err=err_m,
+               std_rel_err=err_s, trace_k1=k1, trace_k2=k2, device_busy_share=busy)
+    log(f"{tag} " + json.dumps(out))
+    return launches
+
+
+def phase_experiments(device="cuda") -> dict:
+    """The port's nine experiment runs (``experiments/run_all.RUNS``) on the
+    card, each with the launch counts set to 0 just before and read just
+    after, against the port's CPU run of the same script
+    (``experiments.common.metric_mismatches``: relative 1e-6, the
+    round-off metrics at their floors); each script's own gates hold.
+    Logs each run's seconds on the card and on the CPU and its launches;
+    returns the launches summed."""
+    import io
+
+    from linpde_gp_tpu_torch.experiments.common import metric_mismatches
+    from linpde_gp_tpu_torch.experiments.run_all import RUNS
+    from linpde_gp_tpu_torch.ops import _cuda
+
+    tag = "experiments"
+    cpu_runs = CPU_RUNS["experiments"]
+    total = {k: 0 for k in _cuda.launches}
+    rows = []
+    for (name, fn), (cpu_name, cpu_payload, cpu_s) in zip(RUNS, cpu_runs):
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            payload = fn(device=device)
+        sync()
+        secs = time.perf_counter() - t0
+        launches = dict(_cuda.launches)
+        for k, v in launches.items():
+            total[k] += v
+        bad = metric_mismatches(payload, cpu_payload)
+        check(cpu_name == name and not bad, f"{tag}: {name} on the card vs the CPU{': ' + '; '.join(bad) if bad else ''}")
+        rows.append(dict(run=name, card_s=secs, cpu_s=cpu_s, launches={k: v for k, v in launches.items() if v},
+                         stages_s=payload["wall_clock_s"], metrics=payload["metrics"]))
+        log(f"{tag}: {name}: card {secs:.3f} s, CPU {cpu_s:.3f} s, launches {rows[-1]['launches']}")
+    check(total["gram"] > 0 and total["gram_matvec"] > 0, f"{tag}: K1 and K2 launched ({total})")
+    log(f"{tag}: card {sum(r['card_s'] for r in rows):.2f} s in all")
+    log(f"{tag} " + json.dumps(rows))
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -3517,7 +3687,8 @@ def main(argv=None) -> int:
         f"float32_matmul_precision={torch.get_float32_matmul_precision()}")
 
     timing, banded_timing = {}, {}
-    launches = {"main": {}, "dense": {}, "mean": {}, "grid": {}, "fem": {}, "integral": {}, "parallel": {}}
+    launches = {"main": {}, "dense": {}, "mean": {}, "grid": {}, "fem": {}, "integral": {}, "parallel": {},
+                "surface": {}, "experiments": {}}
     for phase in PHASES:
         if phase not in phases and phase not in ("device", "build"):
             continue
@@ -3551,8 +3722,12 @@ def main(argv=None) -> int:
                 launches["integral"] = phase_integral(DENSE_N, nq)
             elif phase == "parallel":
                 launches["parallel"] = phase_parallel(specs, k0, n, nq, rank)
-            else:
+            elif phase == "native":
                 phase_native()
+            elif phase == "surface":
+                launches["surface"] = phase_surface()
+            else:
+                launches["experiments"] = phase_experiments()
         except Exception as exc:  # noqa: BLE001 - every phase reports, then the script fails
             traceback.print_exc()
             failures.append(f"phase {phase}: {type(exc).__name__}: {exc}")

@@ -22,6 +22,13 @@ mirrors its module paths and names and never imports JAX.  Ported so far:
   Gauss-Legendre panels), FEM hat-basis L2 projections and weak forms, and
   GP-FEM (Galerkin) conditioning with parametric GPs on the projections.
 
+The public surface mirrors the JAX package's: the reference's aliases
+``linfuncops``, ``linfunctls`` and ``randprocs``, ``utils.profiling``
+(stage timers, ``torch.profiler`` traces), ``utils.plotting`` (loaded on
+first access; needs matplotlib), :func:`entry.entry` (the counterpart of
+``__graft_entry__.entry()``) and the numerics experiments
+(``python -m linpde_gp_tpu_torch.experiments.run_all``).
+
 Both engines evaluate kernels through hand-written CUDA kernels for Gram
 assembly and the Gram matvec (``csrc/gram.cuh``) and the banded matvec of
 compactly supported kernels (``csrc/banded.cuh``), compiled per
@@ -50,6 +57,28 @@ from .models import (
     randvars,
 )
 from .ops import crosscov, diffops, functionals, kernels, linalg, transforms
+from . import utils
+
+# The JAX package's aliases of the reference's names (``linfuncops``,
+# ``linfunctls``, ``randprocs.covfuncs``).
+linfuncops = diffops
+linfunctls = functionals
+
+
+class _RandProcsNamespace:
+    """Namespace mirroring ``linpde_gp.randprocs``."""
+
+    covfuncs = kernels
+    crosscov = crosscov
+    GaussianProcess = GaussianProcess
+    ConditionalGaussianProcess = ConditionalGaussianProcess
+    IterativeGPRegressor = IterativeGPRegressor
+    ParametricGaussianProcess = ParametricGaussianProcess
+    DeterministicProcess = DeterministicProcess
+    asrandproc = models.asrandproc
+
+
+randprocs = _RandProcsNamespace
 
 # Full float32 matmuls (the Nyström GEMMs, the Woodbury apply, the refined
 # solve's float32 factor): TF32 keeps ~3 decimal digits and breaks CG the
@@ -70,9 +99,13 @@ __all__ = [
     "kernels",
     "diffops",
     "functionals",
+    "linfuncops",
+    "linfunctls",
     "crosscov",
     "linalg",
     "transforms",
+    "randprocs",
+    "utils",
     "GaussianProcess",
     "ConditionalGaussianProcess",
     "IterativeGPRegressor",

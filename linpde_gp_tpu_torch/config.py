@@ -15,6 +15,10 @@ modes:
 from here, and raises if neither is set.  Which mode a benchmark should
 default to is an open question that measurements on the card decide
 (PERF.md).
+
+The JAX package's ``use_x64`` has no counterpart: it sets JAX's x64 flag,
+and torch takes each tensor's dtype as given (the dense engine is float64
+on every device).
 """
 
 from __future__ import annotations

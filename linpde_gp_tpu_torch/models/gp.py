@@ -43,7 +43,29 @@ def _state(x, device) -> torch.Tensor | None:
 
 class GaussianProcess:
     """Prior GP ``u ~ GP(mean, cov)`` on ``device`` (``None``: the default
-    device)."""
+    device).
+
+    >>> import numpy as np
+    >>> import linpde_gp_tpu_torch as lgt
+    >>> gp = lgt.GaussianProcess(
+    ...     lgt.functions.Zero(()),
+    ...     lgt.kernels.Matern((), nu=1.5, lengthscales=1.0), device="cpu")
+    >>> post = gp.condition_on_observations(
+    ...     np.asarray([0.0, 1.0]), X=np.asarray([0.0, 1.0]))
+    >>> round(float(post.mean(0.5)), 4)
+    0.5291
+
+    Operator observations (here ``-u'' = 2`` at three points) shrink the
+    posterior spread:
+
+    >>> gp2 = lgt.GaussianProcess(
+    ...     lgt.functions.Zero(()), lgt.kernels.Matern((), nu=2.5), device="cpu")
+    >>> D = -1.0 * lgt.diffops.Laplacian(())
+    >>> post2 = gp2.condition_on_observations(
+    ...     np.full(3, 2.0), X=np.linspace(-1.0, 1.0, 3), L=D)
+    >>> bool(float(post2.std(0.0)) < float(gp2.std(0.0)))
+    True
+    """
 
     def __init__(self, mean: Function, cov: CovarianceFunction, device=None):
         if mean.input_shape != cov.input_shape:

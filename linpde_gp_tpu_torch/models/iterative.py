@@ -72,6 +72,16 @@ class IterativeGPRegressor:
     """Condition a scalar GP on one operator-observation set, gram-free,
     optionally jointly with a small anchor batch.
 
+    >>> import numpy as np
+    >>> import linpde_gp_tpu_torch as lgt
+    >>> prior = lgt.GaussianProcess(
+    ...     lgt.functions.Zero(()), lgt.kernels.Matern((), nu=2.5), device="cpu")
+    >>> X = np.linspace(-1.0, 1.0, 32)
+    >>> reg = IterativeGPRegressor(prior, X, np.sin(3.0 * X), noise_variance=1e-8,
+    ...                            tol=1e-12, mode="f64", device="cpu")
+    >>> bool(abs(float(reg.mean(np.asarray([0.5]))[0]) - np.sin(1.5)) < 1e-4)
+    True
+
     Parameters
     ----------
     prior:

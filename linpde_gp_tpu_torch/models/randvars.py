@@ -55,7 +55,17 @@ class Constant(RandomVariable):
 
 
 class Normal(RandomVariable):
-    """Multivariate normal with a ``Covariance``-view second moment."""
+    """Multivariate normal with a ``Covariance``-view second moment.
+
+    >>> import torch
+    >>> rv = Normal(torch.zeros(2, dtype=torch.float64), 2.0 * torch.eye(2, dtype=torch.float64))
+    >>> rv.shape
+    (2,)
+    >>> post = rv.condition_on_observations(
+    ...     torch.tensor([1.0]), transform=torch.tensor([[1.0, 0.0]], dtype=torch.float64))
+    >>> [round(float(m), 4) for m in post.mean]
+    [1.0, 0.0]
+    """
 
     def __init__(self, mean, cov):
         self._mean = as_f64(mean)

@@ -173,6 +173,16 @@ class WeightedLaplacian(LinearDifferentialOperator):
 
 
 class Laplacian(WeightedLaplacian):
+    """The Laplacian on ``domain_shape`` inputs.
+
+    >>> import torch
+    >>> import linpde_gp_tpu_torch as lgt
+    >>> D = Laplacian(())
+    >>> f = lgt.functions.Polynomial([0.0, 0.0, 1.0])  # x**2
+    >>> float(D(f)(torch.tensor(0.7, dtype=torch.float64)))  # (x**2)'' == 2
+    2.0
+    """
+
     def __init__(self, domain_shape):
         super().__init__(np.ones(as_shape(domain_shape)))
 

@@ -281,6 +281,14 @@ def _check_dims(terms, X0, X1) -> None:
         raise ValueError(f"points have {X0.shape[1]}/{X1.shape[1]} dims, the spec {nd}")
 
 
+def _check_input_shape(kernel, X) -> None:
+    """``X`` must end in ``kernel.input_shape`` (the JAX package's
+    ``gram_matrix`` fails to reshape other points)."""
+    shape, have = tuple(kernel.input_shape), tuple(X.shape if hasattr(X, "shape") else np.shape(X))
+    if shape and have[len(have) - len(shape):] != shape:
+        raise ValueError(f"points of shape {have} for a kernel of input shape {shape}")
+
+
 def gram_plain(terms, X0, X1, mode=None) -> torch.Tensor:
     """Plain PyTorch version of K1 on any device, in row blocks."""
     mode = resolve_mode(mode)
@@ -381,6 +389,7 @@ def gram(terms, X0, X1, mode=None) -> torch.Tensor:
     mode = resolve_mode(mode)
     X0, X1 = _as_points(X0, mode), _as_points(X1, mode)
     _check_same_device(X0, X1)
+    _check_dims(terms, X0, X1)
     if X0.is_cuda:
         from . import _cuda
 
@@ -402,7 +411,11 @@ def gram_matrix(kernel, X0, X1=None, mode=None) -> torch.Tensor:
     broadcast points, in torch on the points' device (the JAX package forms
     it outside any Pallas kernel too), in float64 on the points rounded to
     the mode's dtype, and returned in that dtype.  ``X0`` / ``X1``: ``(n,) +
-    input_shape`` points (``X1=None``: ``X0``)."""
+    input_shape`` points (``X1=None``: ``X0``); other trailing shapes
+    raise ``ValueError``."""
+    _check_input_shape(kernel, X0)
+    if X1 is not None:
+        _check_input_shape(kernel, X1)
     X0 = _as_points(X0, mode)
     X1 = X0 if X1 is None else _as_points(X1, mode)
     d = max(kernel.input_size, 1)
@@ -426,6 +439,7 @@ def gram_matvec(spec, X0, X1, v, mode=None):
     mode = resolve_mode(mode)
     X0, X1 = _as_points(X0, mode), _as_points(X1, mode)
     _check_same_device(X0, X1)
+    _check_dims(spec[1], X0, X1)
     if X0.is_cuda:
         from . import _cuda
 

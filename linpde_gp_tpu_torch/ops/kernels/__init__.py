@@ -17,6 +17,9 @@ from .wendland import (
     wendland_polynomial,
 )
 
+# The grid type under the JAX package's name and location.
+from ...models.domains.grid import TensorProductGrid
+
 __all__ = [
     "CovarianceFunction",
     "StationaryMixin",
@@ -33,6 +36,7 @@ __all__ = [
     "ParametricCovarianceFunction",
     "GalerkinCovarianceFunction",
     "TensorProduct",
+    "TensorProductGrid",
     "WendlandCovarianceFunction",
     "WendlandFunction",
     "WendlandPolynomial",

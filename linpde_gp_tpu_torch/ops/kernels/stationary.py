@@ -59,7 +59,17 @@ class Matern(StationaryMixin, CovarianceFunction):
     r"""Matérn covariance with smoothness ``nu``: ``nu = inf`` is the
     Gaussian kernel, half-integer ``nu`` the exact polynomial closed form,
     any other ``nu`` the Bessel form :func:`~.bessel.matern_bessel`, whose
-    ``K_nu`` scipy evaluates on the host."""
+    ``K_nu`` scipy evaluates on the host.
+
+    >>> import torch
+    >>> k = Matern((), nu=1.5, lengthscales=1.0)
+    >>> float(k(torch.tensor(0.0), torch.tensor(0.0)))
+    1.0
+    >>> round(float(k(torch.tensor(0.0), torch.tensor(1.0))), 6)
+    0.483358
+    >>> tuple(k.matrix(torch.linspace(0.0, 1.0, 3)).shape)
+    (3, 3)
+    """
 
     def __init__(self, input_shape=(), nu: float = 1.5, lengthscales=1.0):
         super().__init__(input_shape)

@@ -12,7 +12,16 @@ from .base import CovarianceFunction
 
 class TensorProduct(CovarianceFunction):
     r"""``k(x, y) = prod_i k_i(x_i, y_i)`` over scalar-input, scalar-output
-    factor kernels."""
+    factor kernels.
+
+    >>> import torch
+    >>> from linpde_gp_tpu_torch.ops.kernels import Matern
+    >>> kt = TensorProduct(Matern((), nu=1.5), Matern((), nu=2.5))
+    >>> kt.input_shape
+    (2,)
+    >>> round(float(kt(torch.zeros(2, dtype=torch.float64), torch.ones(2, dtype=torch.float64))), 6)
+    0.253277
+    """
 
     def __init__(self, *factors: CovarianceFunction):
         factors = tuple(factors)

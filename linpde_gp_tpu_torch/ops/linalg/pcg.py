@@ -6,8 +6,9 @@ Port of the main-path subset of ``linpde_gp_tpu/ops/linalg/pcg.py``:
 side :func:`pcg_block_ff` with its two step functions, the plain
 :func:`pcg` and :func:`pcg_block`, the ff scalar helpers, :func:`ff_dot_cols` and
 :func:`ff_norm2_cols`,
-:class:`NystromPreconditioner`, :func:`nystrom_preconditioner_device`
-and :func:`landmark_indices`.
+:class:`NystromPreconditioner`, :func:`nystrom_preconditioner` (on formed
+blocks), :func:`nystrom_preconditioner_device` and
+:func:`landmark_indices`.
 
 Differences from the JAX package:
 
@@ -214,7 +215,16 @@ def pcg(
     at 0, stopping once ``||r|| <= tol ||b||`` (``tol`` absolute for ``b =
     0``, which returns ``x0`` or zero in 0 iterations) or at ``maxiter``;
     the host reads ``||r||`` once per iteration.  ``M`` applies an
-    approximation of ``A^{-1}``; ``x_lo`` of the result is zero."""
+    approximation of ``A^{-1}``; ``x_lo`` of the result is zero.
+
+    >>> import torch
+    >>> d = torch.tensor([1.0, 2.0, 3.0], dtype=torch.float64)
+    >>> res = pcg(lambda v: d * v, torch.ones(3, dtype=torch.float64), tol=1e-12)
+    >>> int(res.iterations)
+    3
+    >>> [round(float(x), 6) for x in res.x]
+    [1.0, 0.5, 0.333333]
+    """
     if M is None:
         M = lambda r: r  # noqa: E731
     x = torch.zeros_like(b) if x0 is None else x0.clone()
@@ -407,6 +417,38 @@ class NystromPreconditioner(NamedTuple):
         if vector:
             out = out[:, 0]
         return _as_ff(out, r_dtype) if pair else out.to(r_dtype)
+
+
+def nystrom_preconditioner(K_XZ, K_ZZ, sigma_sq) -> NystromPreconditioner:
+    """The tail-damped inverse of ``Nystrom(K) + sigma^2 I`` from a formed
+    ``(n, m)`` block ``K_XZ`` against ``m`` landmarks and their ``(m, m)``
+    Gram ``K_ZZ`` (``pcg.py:796`` of the JAX package, in the tensors' dtype
+    and on their device): ``K_ZZ`` stabilized by ``eps trace(K_ZZ) m``,
+    ``delta = max(lambda_min(C0), 100 eps lambda_max(C0)) + sigma^2`` from
+    ``C0 = B^T B``'s eigenvalues.  A factorization that fails after the
+    Cholesky ladder raises ``torch.linalg.LinAlgError`` (the JAX package
+    returns NaN factors).
+
+    >>> import torch
+    >>> K = torch.tensor([[2.0, 0.5], [0.5, 1.0]], dtype=torch.float64)
+    >>> P = nystrom_preconditioner(K, K, 0.1)
+    >>> r = torch.tensor([1.0, -1.0], dtype=torch.float64)
+    >>> bool(torch.allclose((K + P.delta * torch.eye(2, dtype=torch.float64)) @ P(r), r))
+    True
+    """
+    K_XZ, K_ZZ = torch.as_tensor(K_XZ), torch.as_tensor(K_ZZ)
+    m = K_ZZ.shape[0]
+    eps = torch.finfo(K_ZZ.dtype).eps
+    eye = torch.eye(m, dtype=K_ZZ.dtype, device=K_ZZ.device)
+    L = robust_cholesky(K_ZZ + (eps * float(torch.trace(K_ZZ)) * m) * eye, jitter=0.0)
+    B = K_XZ @ torch.linalg.solve_triangular(L, eye, upper=False).T
+    C0 = B.T @ B
+    C0 = 0.5 * (C0 + C0.T)
+    lam = torch.linalg.eigvalsh(C0)
+    lam_m = max(float(lam[0]), 100.0 * eps * max(float(lam[-1]), 0.0))
+    delta = lam_m + float(sigma_sq)
+    chol_C = robust_cholesky(C0 + delta * eye, jitter=0.0)
+    return NystromPreconditioner(B, chol_C, torch.tensor(delta, dtype=K_ZZ.dtype, device=K_ZZ.device))
 
 
 def _lam1(A, iters=16):

@@ -153,7 +153,17 @@ def apply_operator_to_kernel(
 ) -> CovarianceFunction:
     """Apply a linear operator to one argument of a covariance function:
     ``L k`` for ``argnum=0``, ``k L*`` for ``argnum=1``.  Closed forms for
-    the product and radial families, the autodiff fallback otherwise."""
+    the product and radial families, the autodiff fallback otherwise.
+
+    >>> import torch
+    >>> from linpde_gp_tpu_torch.ops import diffops
+    >>> from linpde_gp_tpu_torch.ops.kernels import Matern, TensorProduct
+    >>> kt = TensorProduct(Matern((), nu=1.5), Matern((), nu=2.5))
+    >>> H = diffops.HeatOperator((2,), alpha=1.0)  # d/dt - alpha * Laplace
+    >>> k_h = apply_operator_to_kernel(H, kt, argnum=1)
+    >>> round(float(k_h(torch.zeros(2, dtype=torch.float64), torch.ones(2, dtype=torch.float64))), 6)
+    -0.429992
+    """
     if argnum not in (0, 1):
         raise ValueError(f"argnum must be 0 or 1, got {argnum!r}")
     if isinstance(op, Identity):

@@ -405,3 +405,51 @@ def test_plain_versions_check_the_points_width(fn):
             gram_plain(OBS[1], wide, X, "f64")
         else:
             gram_matvec_plain(OBS, wide, X, torch.ones(12, dtype=torch.float64), "f64")
+
+
+def _heat_prior_kernels():
+    """``TensorProduct(Matern 3/2 l=2.5, Matern 5/2 l=2.0)`` (input shape
+    (2,)) in both packages."""
+    import linpde_gp_tpu_torch as tlgt
+
+    def build(pkg):
+        return pkg.kernels.TensorProduct(
+            pkg.kernels.Matern((), nu=1.5, lengthscales=2.5), pkg.kernels.Matern((), nu=2.5, lengthscales=2.0)
+        )
+
+    return build(lgt), build(tlgt)
+
+
+def test_host_engine_route_checks_the_points_width():
+    """3-wide points for a 2-dim spec raise before ``gram`` and
+    ``gram_matvec`` pick a route, the host engine's included (1024^2 pairs
+    reach ``config.native_gram_threshold``), as the plain versions raise."""
+    from linpde_gp_tpu_torch.ops.gram import kernel_term_specs as torch_term_specs
+
+    _, kernel = _heat_prior_kernels()
+    spec = torch_term_specs(kernel)
+    assert 1024 * 1024 >= config.native_gram_threshold and config.use_native_host_engine
+    X = torch.from_numpy(np.random.default_rng(0).uniform(-1.0, 1.0, (1024, 3)))
+    with pytest.raises(ValueError, match="dims, the spec 2"):
+        gram(spec[1], X, X, "f64")
+    with pytest.raises(ValueError, match="dims, the spec 2"):
+        gram_matvec(spec, X, X, torch.ones(1024, dtype=torch.float64), "f64")
+
+
+def test_gram_matrix_checks_the_points_input_shape():
+    """``gram_matrix`` refuses points whose trailing shape is not the
+    kernel's input shape; the JAX package's fails on the same points."""
+    from linpde_gp_tpu.ops.pallas_gram import gram_matrix as jax_gram_matrix
+    from linpde_gp_tpu_torch.ops.gram import gram_matrix
+
+    jax_kernel, kernel = _heat_prior_kernels()
+    rng = np.random.default_rng(1)
+    X0, X1 = rng.uniform(-1.0, 1.0, (8, 3)), rng.uniform(-1.0, 1.0, (4, 3))
+    with pytest.raises(TypeError):
+        jax_gram_matrix(jax_kernel, jnp.asarray(X0), jnp.asarray(X1))
+    with pytest.raises(ValueError, match="input shape"):
+        gram_matrix(kernel, X0, X1, mode="f64")
+    with pytest.raises(ValueError, match="input shape"):
+        gram_matrix(kernel, torch.from_numpy(X0), mode="f64")
+    good = gram_matrix(kernel, X0[:, :2], X1[:, :2], mode="f64")
+    assert tuple(good.shape) == (8, 4)

@@ -104,7 +104,22 @@ _MODULES = [
     "linpde_gp_tpu_torch.parallel.posterior",
     "linpde_gp_tpu_torch.parallel.iterative",
     "linpde_gp_tpu_torch.parallel.dryrun",
+    "linpde_gp_tpu_torch.utils.profiling",
+    "linpde_gp_tpu_torch.entry",
+    "linpde_gp_tpu_torch.experiments",
+    "linpde_gp_tpu_torch.experiments.common",
+    "linpde_gp_tpu_torch.experiments.poisson_1d",
+    "linpde_gp_tpu_torch.experiments.poisson_2d",
+    "linpde_gp_tpu_torch.experiments.heat_1d",
+    "linpde_gp_tpu_torch.experiments.poisson_fem",
+    "linpde_gp_tpu_torch.experiments.poisson_1d_inverse_rhs",
+    "linpde_gp_tpu_torch.experiments.cpu_thermal_1d",
+    "linpde_gp_tpu_torch.experiments.cpu_thermal_2d",
+    "linpde_gp_tpu_torch.experiments.run_all",
 ]
+#: Modules checked elsewhere: plotting needs matplotlib, which the GPU
+#: machine lacks (``test_torch_plotting.py``, ``test_torch_surface.py``).
+_TESTED_APART = ["linpde_gp_tpu_torch.utils.plotting"]
 
 
 def test_module_list_covers_the_package():
@@ -115,7 +130,7 @@ def test_module_list_covers_the_package():
             if f.endswith(".py"):
                 rel = os.path.relpath(os.path.join(dirpath, f), ROOT)[: -len(".py")].replace(os.sep, ".")
                 found.add(rel[: -len(".__init__")] if rel.endswith(".__init__") else rel)
-    assert found <= set(_MODULES), sorted(found - set(_MODULES))
+    assert found <= set(_MODULES) | set(_TESTED_APART), sorted(found - set(_MODULES) - set(_TESTED_APART))
 
 
 def test_port_imports_with_jax_blocked():
