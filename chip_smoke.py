@@ -280,6 +280,29 @@ Phases, each printed as it finishes:
               (``experiments/common.py``); each script's own gates hold.
               Logged: each run's seconds on the card and on the CPU, and its
               launches.
+16. scale   - the port's seven scale experiments
+              (``linpde_gp_tpu_torch/experiments``: large_scale, grid_mode,
+              variance, wendland_banded, scaling, gram_noise_floor,
+              precond_spectroscopy).  (a) Parity: each at the sizes of
+              ``tests/test_torch_experiments_scale_*.py`` on the card and on
+              the CPU, both at the JAX scripts' CPU-branch settings in mode
+              f64 (the grid at CG tol 1e-9), the payloads compared key by
+              key (``experiments.common.payload_mismatches``, CG iterations
+              also within ``CARD_ITER_RTOL`` of the count).  (b) Full size:
+              each once on the card at the JAX scripts' TPU-branch settings
+              (N = 1e5; scaling to 32768^2, spectroscopy at 8192) in its
+              default mode, with the launch counts set to 0 just before each
+              run and read just after, and gated: large_scale and grid_mode
+              RMSE vs u* <= 4e-4 and relres <= 100 tol; wendland_banded
+              routed banded, banded vs dense within ff's 1e-8; variance the
+              script's bounds and partitions within 1e-3 of max var; scaling
+              finite weights in every row that runs (also in f64; a float32
+              Cholesky that breaks down is logged with its n); noise floor
+              ff's largest entry error at most plain's; spectroscopy every
+              config converged or at its maxiter.  Logged: each payload, its
+              seconds and its launches.  Last, K2 at 1e5^2, r = 1, in modes ff
+              and f64 held at 256 sampled rows to float64 rows of the plain
+              version (``experiments/probe_diverge_tpu.py`` (a)).
 The build phase runs ``entry()`` and the nine runs on the CPU first, and
 builds the kernel module of every spec they hand to the kernels.
 
@@ -288,11 +311,12 @@ ff time at the main path's shape beside its plain version's, its bound
 (``bound_ms``: the larger of the operations the work needs, from the
 generator's per-pair counts, over the H100 SXM's peak rate of their
 pipe, and its bytes over the memory rate; :data:`PEAK`) and its launches
-in the main, dense, mean, grid, fem, integral, parallel, surface and
-experiments phases (``launches_by_path``: the main phase's runs, the dense
-engine's own work, the mean path's runs, the grid path's runs, the checked
-GP-FEM run, the integral route, the parallel layer's runs, ``entry()`` and
-the nine experiment runs, apart).  The last line is ``{"ok": true, "device":
+in the main, dense, mean, grid, fem, integral, parallel, surface,
+experiments and scale phases (``launches_by_path``: the main phase's runs,
+the dense engine's own work, the mean path's runs, the grid path's runs,
+the checked GP-FEM run, the integral route, the parallel layer's runs,
+``entry()``, the nine experiment runs and the scale experiments' full-size
+runs, apart).  The last line is ``{"ok": true, "device":
 {...}}``, printed only if every phase passed.  The script never imports JAX.
 """
 
@@ -310,7 +334,7 @@ import traceback
 import numpy as np
 
 PHASES = ("device", "build", "kernels", "timing", "main", "dense", "mean", "symbolic", "grid", "fem", "integral",
-          "parallel", "native", "surface", "experiments")
+          "parallel", "native", "surface", "experiments", "scale")
 # name -> (TPU kernel(s) it replaces, label, source)
 KERNELS = {
     "gram": ("linpde_gp_tpu/ops/pallas_gram.py:277", "K1", "linpde_gp_tpu_torch/csrc/gram.cuh"),
@@ -3662,6 +3686,190 @@ def phase_experiments(device="cuda") -> dict:
     return total
 
 
+#: The scale experiments' parity runs, at the sizes of
+#: tests/test_torch_experiments_scale_*.py: ``(module, environment)``; the
+#: rest of each script's settings at the JAX script's CPU-branch defaults,
+#: but the grid's CG tol: at its 1e-6 two roundings of one solve stop at
+#: iterates whose means' RMSE differ by 3e-6 of it (H100 against the CPU),
+#: at 1e-9 the RMSE has converged (the CPU against JAX: 1e-8 of it).
+SCALE_PARITY = (
+    ("large_scale", {"LS_N": "512"}),
+    ("grid_mode", {"GM_NT": "24", "GM_NX": "16", "GM_TOL": "1e-9"}),
+    ("variance", {"VT_N": "512"}),
+    ("wendland_banded", {"WB_N": "4096"}),
+    ("scaling", {}),
+    ("gram_noise_floor", {"NF_N": "256", "NF_THROUGHPUT_N": "512"}),
+    ("precond_spectroscopy", {}),
+)
+#: The parity runs of the sweep and the spectroscopy (the tests' arguments).
+SCALE_SIZES_SMALL = (256, 512)
+SPECTROSCOPY_SMALL = ["--n", "1024", "--ranks", "128,256"]
+#: The scale phase's gates: RMSE vs u* (PERF.md section 2) and the banded
+#: matvec's agreement with dense K2 in mode ff (``phase_banded_timing``).
+SCALE_RMSE, SCALE_BANDED_AGREE, SCALE_PARTITION = 4e-4, 1e-8, 1e-3
+
+
+@contextlib.contextmanager
+def environment(env: dict):
+    """``os.environ`` with ``env`` set, restored on exit."""
+    import os
+
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def scale_run(name, device, **kw):
+    """The scale experiment ``name``'s payload (its stdout swallowed): the
+    sweep and the spectroscopy at the parity sizes unless ``kw`` gives
+    their arguments."""
+    import importlib
+    import io
+
+    module = importlib.import_module(f"linpde_gp_tpu_torch.experiments.{name}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        if name == "scaling":
+            return module.main(kw.pop("sizes", SCALE_SIZES_SMALL), reps=kw.pop("reps", 1), device=device, **kw)
+        if name == "precond_spectroscopy":
+            return module.main(kw.pop("argv", SPECTROSCOPY_SMALL), device=device)
+        return module.main(device=device, **kw)
+
+
+def check_k2_sampled_rows(n=100_000, rows=256, tag="scale") -> dict:
+    """``experiments/probe_diverge_tpu.py`` (a): K2 at N x N, r = 1, in modes
+    ff and f64 on the heat benchmark's float32 points, held at ``rows``
+    sampled rows to the float64 product of the plain version's f64 Gram rows
+    of the same points: ff's pair within ``ROW_BOUND`` of the rows' float32
+    rounding scale (:func:`pair_excess`), f64 within 1e-11 of sum_j |k_ij
+    v_j| (n eps64, the worst case of a sum of n terms)."""
+    import torch
+
+    from linpde_gp_tpu_torch.ops.gram import gram_matvec, gram_plain
+
+    spec = heat_specs()["obs"]
+    X, _, _ = bench_data(n, 0)
+    rng = np.random.default_rng(3)
+    v = torch.tensor(rng.standard_normal(n).astype(np.float32), device="cuda")
+    sel = torch.as_tensor(rng.choice(n, rows, replace=False), device="cuda")
+    Xd = torch.tensor(X, device="cuda")
+    K = spec[0] * gram_plain(spec[1], Xd[sel].double(), Xd.double(), "f64")
+    oracle, row_absum = K @ v.double(), K.abs() @ v.double().abs()
+    del K
+    out = {}
+    for mode in ("ff", "f64"):
+        dt = torch.float64 if mode == "f64" else torch.float32
+        res = gram_matvec(spec, Xd.to(dt), Xd.to(dt), v.to(dt), mode)
+        if mode == "ff":
+            out[mode] = pair_excess((res[0][sel], res[1][sel]), oracle, row_absum, float(np.finfo(np.float32).eps))
+            check(out[mode] <= ROW_BOUND, f"{tag}: K2 ff at {n}^2 on {rows} sampled rows: the f64 product within "
+                  f"{out[mode]:.3g} <= {ROW_BOUND:g} eps32 sum_j |k_ij v_j|")
+        else:
+            out[mode] = ((res[sel] - oracle).abs() / row_absum).max().item()
+            check(out[mode] <= 1e-11, f"{tag}: K2 f64 at {n}^2 on {rows} sampled rows: {out[mode]:.3g} <= 1e-11 "
+                  f"of sum_j |k_ij v_j|")
+        del res
+    return out
+
+
+def phase_scale(device="cuda") -> dict:
+    """The seven scale experiments: (a) each at the parity sizes on the card
+    and on the CPU (the CPU-branch settings, mode f64), held key by key by
+    ``experiments.common.payload_mismatches``; (b) each at full size on the
+    card (the TPU-branch settings, default mode), the launch counts set to
+    0 just before each run and read just after, under the gates of the
+    docstring.  Logs every payload, its seconds and launches; returns the
+    full-size runs' launches summed."""
+    import torch
+
+    from linpde_gp_tpu_torch.experiments.common import CARD_ITER_RTOL, payload_mismatches
+    from linpde_gp_tpu_torch.ops import _cuda
+
+    tag = "scale"
+    for name, env in SCALE_PARITY:
+        with environment(env):
+            t0 = time.perf_counter()
+            want = scale_run(name, "cpu")
+            cpu_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got = scale_run(name, device, **({} if name == "precond_spectroscopy" else {"branch": "cpu"}))
+            sync()
+            card_s = time.perf_counter() - t0
+        experiment = want["experiment"] if isinstance(want, dict) else name  # the spectroscopy's rows
+        bad = payload_mismatches(experiment, got, want, iter_rtol=CARD_ITER_RTOL)
+        check(not bad, f"{tag}: {name} at the parity sizes on the card vs the CPU"
+              f"{': ' + '; '.join(bad) if bad else ''} (card {card_s:.2f} s, CPU {cpu_s:.2f} s)")
+
+    total = {k: 0 for k in _cuda.launches}
+    rows = {}
+
+    def full(key, name, **kw):
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        payload = scale_run(name, device, **kw)
+        sync()
+        secs = time.perf_counter() - t0
+        launches = dict(_cuda.launches)
+        for k, v in launches.items():
+            total[k] += v
+        rows[key] = dict(seconds=secs, launches={k: v for k, v in launches.items() if v}, payload=payload)
+        log(f"{tag}: {key}: {secs:.2f} s, launches {rows[key]['launches']}")
+        log(f"{tag}[{key}] " + json.dumps(payload))
+        torch.cuda.empty_cache()
+        return payload
+
+    p = full("large_scale", "large_scale")
+    check(p["rmse_vs_analytic"] <= SCALE_RMSE and p["pcg_relres"] <= 100 * 1e-5,
+          f"{tag}: large_scale[{p['mode']}] RMSE {p['rmse_vs_analytic']:.3e} <= {SCALE_RMSE:g}, relres "
+          f"{p['pcg_relres']:.3e} <= 1e-3 (anchor noise {p['anchor_noise']:g})")
+    p = full("grid_mode", "grid_mode")
+    check(p["rmse_vs_analytic"] <= SCALE_RMSE and p["pcg_relres"] <= 100 * 1e-5,
+          f"{tag}: grid_mode[{p['mode']}] RMSE {p['rmse_vs_analytic']:.3e} <= {SCALE_RMSE:g}, relres "
+          f"{p['pcg_relres']:.3e} <= 1e-3")
+    p = full("wendland_banded", "wendland_banded")
+    check(p["banded_routed"] and p["agreement_rel_err"] <= SCALE_BANDED_AGREE,
+          f"{tag}: wendland_banded[{p['mode']}] routed banded ({p['banded_routed']}), banded vs dense "
+          f"{p['agreement_rel_err']:.3e} <= {SCALE_BANDED_AGREE:g} of max; band {p['band_fraction']:.4f} of the "
+          f"tiles, {p['pair_fraction']:.4f} of the pairs")
+    # The script raises on a negative variance or one above the prior's.
+    p = full("variance", "variance")
+    check(p["partition_consistency_rel"] <= SCALE_PARTITION,
+          f"{tag}: variance[{p['mode']}] within the prior bounds; partitions agree to "
+          f"{p['partition_consistency_rel']:.3e} <= {SCALE_PARTITION:g} of max var")
+    # The sweep in its default mode (plain) one size at a time: a float32
+    # Cholesky that breaks down raises, and is logged with its n.
+    from linpde_gp_tpu_torch.experiments.scaling import SIZES
+
+    for n in SIZES:
+        try:
+            p = full(f"scaling_{n}", "scaling", sizes=(n,), reps=3)
+            check(len(p["results"]) == 1, f"{tag}: scaling[{p['mode']}] n={n}: finite weights")
+        except torch.linalg.LinAlgError as exc:
+            log(f"{tag}: scaling n={n}: the float32 Cholesky breaks down ({str(exc).splitlines()[0]})")
+            rows[f"scaling_{n}"] = dict(breakdown=str(exc).splitlines()[0])
+    p = full("scaling_f64", "scaling", sizes=SIZES, reps=3, mode="f64")
+    check(len(p["results"]) == len(SIZES), f"{tag}: scaling[f64] finite weights at every size {SIZES}")
+    p = full("gram_noise_floor", "gram_noise_floor")
+    check(p["compensated"]["max_entry"] <= p["plain"]["max_entry"],
+          f"{tag}: noise floor: ff's largest entry error {p['compensated']['max_entry']:.3e} <= plain's "
+          f"{p['plain']['max_entry']:.3e} (of k0); ||E||_2 reduced {p['coherent_reduction_x']:.1f}x")
+    p = full("precond_spectroscopy", "precond_spectroscopy", argv=["--spectrum"])
+    iters = ", ".join(f"{r['config']} {r['iters']}" for r in p)
+    check(all(r["relres"] <= 1e-5 or r["iters"] == 2000 for r in p),
+          f"{tag}: spectroscopy: every config converged to tol 1e-5 or stopped at maxiter 2000 ({iters})")
+    check(total["gram"] > 0 and total["gram_matvec"] > 0 and total["gram_matvec_wide"] > 0
+          and total["banded_matvec"] > 0, f"{tag}: K1, K2 (r = 1 and r > 4) and the banded kernel launched ({total})")
+    rows["k2_sampled_rows"] = check_k2_sampled_rows()
+    log(f"{tag} " + json.dumps({k: {kk: vv for kk, vv in v.items() if kk != "payload"} for k, v in rows.items()}))
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -3688,7 +3896,7 @@ def main(argv=None) -> int:
 
     timing, banded_timing = {}, {}
     launches = {"main": {}, "dense": {}, "mean": {}, "grid": {}, "fem": {}, "integral": {}, "parallel": {},
-                "surface": {}, "experiments": {}}
+                "surface": {}, "experiments": {}, "scale": {}}
     for phase in PHASES:
         if phase not in phases and phase not in ("device", "build"):
             continue
@@ -3726,8 +3934,10 @@ def main(argv=None) -> int:
                 phase_native()
             elif phase == "surface":
                 launches["surface"] = phase_surface()
-            else:
+            elif phase == "experiments":
                 launches["experiments"] = phase_experiments()
+            else:
+                launches["scale"] = phase_scale()
         except Exception as exc:  # noqa: BLE001 - every phase reports, then the script fails
             traceback.print_exc()
             failures.append(f"phase {phase}: {type(exc).__name__}: {exc}")

@@ -116,6 +116,14 @@ _MODULES = [
     "linpde_gp_tpu_torch.experiments.cpu_thermal_1d",
     "linpde_gp_tpu_torch.experiments.cpu_thermal_2d",
     "linpde_gp_tpu_torch.experiments.run_all",
+    "linpde_gp_tpu_torch.experiments.figures",
+    "linpde_gp_tpu_torch.experiments.scaling",
+    "linpde_gp_tpu_torch.experiments.gram_noise_floor",
+    "linpde_gp_tpu_torch.experiments.wendland_banded",
+    "linpde_gp_tpu_torch.experiments.large_scale",
+    "linpde_gp_tpu_torch.experiments.grid_mode",
+    "linpde_gp_tpu_torch.experiments.variance",
+    "linpde_gp_tpu_torch.experiments.precond_spectroscopy",
 ]
 #: Modules checked elsewhere: plotting needs matplotlib, which the GPU
 #: machine lacks (``test_torch_plotting.py``, ``test_torch_surface.py``).
