@@ -29,6 +29,7 @@ from ..ops.functionals.evaluation import _EvaluationFunctional
 from ..ops.kernels.base import CovarianceFunction
 from ..ops.linalg import refine
 from ..ops.linalg.chol import cho_solve, chol_extend, cholesky, logdet_from_chol, solve_triangular
+from ..utils.profiling import span
 from .functions.base import Function
 from .randvars import Constant, Normal, asrandvar
 
@@ -350,17 +351,20 @@ class ConditionalGaussianProcess(GaussianProcess):
 
     def var(self, x) -> torch.Tensor:
         """Pointwise posterior variance at ``batch + input_shape`` points."""
-        x = as_f64(x, self._device)
-        u = self._kLas.evaluate(x)  # batch + out + (n,)
-        prior_var = self._prior.var(x)
-        n = u.shape[-1]
-        ut = u.reshape(-1, n).T
-        if self._gram is None:
-            q = solve_triangular(self._chol, ut)
-            update = torch.sum(q**2, 0).reshape(u.shape[:-1])
-        else:
-            update = torch.sum(ut * self._solve(ut), 0).reshape(u.shape[:-1])
-        return torch.clamp(prior_var - update, min=0.0)
+        with span("lgt.gp.var"):
+            x = as_f64(x, self._device)
+            with span("lgt.gp.crosscov"):
+                u = self._kLas.evaluate(x)  # batch + out + (n,)
+            prior_var = self._prior.var(x)
+            n = u.shape[-1]
+            ut = u.reshape(-1, n).T
+            with span("lgt.gp.var.solve"):
+                if self._gram is None:
+                    q = solve_triangular(self._chol, ut)
+                    update = torch.sum(q**2, 0).reshape(u.shape[:-1])
+                else:
+                    update = torch.sum(ut * self._solve(ut), 0).reshape(u.shape[:-1])
+            return torch.clamp(prior_var - update, min=0.0)
 
 
 class ConditionalMean(Function):
@@ -376,11 +380,14 @@ class ConditionalMean(Function):
         return super().__call__(as_f64(x, self._weights.device))
 
     def _evaluate(self, x):
-        m = self._prior_mean._evaluate(x)
-        batch = tuple(x.shape[: x.ndim - self.input_ndim])
-        m = torch.broadcast_to(m, batch + self.output_shape)
-        # matvec takes K2 where the crosscov routes it there.
-        return m + self._kLas.matvec(x, self._weights)
+        with span("lgt.gp.mean"):
+            m = self._prior_mean._evaluate(x)
+            batch = tuple(x.shape[: x.ndim - self.input_ndim])
+            m = torch.broadcast_to(m, batch + self.output_shape)
+            # matvec takes K2 where the crosscov routes it there.
+            with span("lgt.gp.crosscov"):
+                mu = self._kLas.matvec(x, self._weights)
+            return m + mu
 
 
 class ConditionalCovariance(CovarianceFunction):

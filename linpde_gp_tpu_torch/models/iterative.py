@@ -62,6 +62,7 @@ from ..ops.kron_ff import kron_linop
 from ..ops.linalg.chol import cho_solve, cholesky
 from ..ops.linalg.pcg import landmark_indices, nystrom_preconditioner_device, pcg_block_ff, pcg_ff
 from ..ops.transforms.dispatch import apply_operator_to_kernel
+from ..utils.profiling import span
 from ..utils.shapes import size
 from .domains.grid import grid_factors
 from .functions.base import Zero
@@ -310,10 +311,11 @@ class IterativeGPRegressor:
             return None
         if self._precond is None:
             idx = landmark_indices(self.X.shape[0], self.precond_rank, device=self.device)
-            self._precond = nystrom_preconditioner_device(
-                self._precond_block_fn, self.X, self.X[idx], self.noise_variance,
-                dtype=self._dtype,
-            )
+            with span("lgt.nystrom.build"):
+                self._precond = nystrom_preconditioner_device(
+                    self._precond_block_fn, self.X, self.X[idx], self.noise_variance,
+                    dtype=self._dtype,
+                )
         return self._precond
 
     def _dense_obs_gram(self):

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from ...config import config
+from ...utils.profiling import span
 
 #: Rows of the blocks :func:`_sym_` symmetrizes at once.
 _SYM_BLOCK = 4096
@@ -52,20 +53,21 @@ def _factor(gram: torch.Tensor, jitter: float) -> torch.Tensor:
     mean diagonal) always added; on failure the escalating relative jitter
     ``eps, 100 eps, ...`` below ``1e7 eps`` (``chol.py:61-67`` of the JAX
     package); raises if every rung fails."""
-    diag_scale = float(torch.mean(torch.diagonal(gram)))
-    if jitter:
-        gram = _with_diagonal(gram, jitter * diag_scale)
-    chol, info = torch.linalg.cholesky_ex(gram)
-    eps = torch.finfo(gram.dtype).eps
-    rel = eps
-    while int(info) != 0 and rel < 1e7 * eps:
-        chol, info = torch.linalg.cholesky_ex(_with_diagonal(gram, rel * diag_scale))
-        rel *= 100.0
-    if int(info) != 0:
-        raise torch.linalg.LinAlgError(
-            f"Cholesky failed at relative jitter up to {rel / 100.0:.3g} (leading minor {int(info)})"
-        )
-    return chol
+    with span("lgt.chol.factor"):
+        diag_scale = float(torch.mean(torch.diagonal(gram)))
+        if jitter:
+            gram = _with_diagonal(gram, jitter * diag_scale)
+        chol, info = torch.linalg.cholesky_ex(gram)
+        eps = torch.finfo(gram.dtype).eps
+        rel = eps
+        while int(info) != 0 and rel < 1e7 * eps:
+            chol, info = torch.linalg.cholesky_ex(_with_diagonal(gram, rel * diag_scale))
+            rel *= 100.0
+        if int(info) != 0:
+            raise torch.linalg.LinAlgError(
+                f"Cholesky failed at relative jitter up to {rel / 100.0:.3g} (leading minor {int(info)})"
+            )
+        return chol
 
 
 def cholesky(gram: torch.Tensor, jitter: float | None = None) -> torch.Tensor:
@@ -102,16 +104,17 @@ def chol_extend(chol_lower: torch.Tensor, cross: torch.Tensor, block: torch.Tens
     overwritten: at n = 32,768 a copy is 8.6 GB), symmetrized and factored
     by :func:`cholesky`'s rules.
     """
-    n, m = chol_lower.shape[0], block.shape[0]
-    c = torch.linalg.solve_triangular(chol_lower, cross, upper=False)  # (n, m)
-    block.addmm_(c.T, c, alpha=-1.0)
-    chol_schur = _factor(_sym_(block), config.cholesky_jitter)
-    out = torch.empty((n + m, n + m), dtype=chol_lower.dtype, device=chol_lower.device)
-    out[:n, :n] = chol_lower
-    out[:n, n:] = 0.0
-    out[n:, :n] = c.T
-    out[n:, n:] = chol_schur
-    return out
+    with span("lgt.chol.extend"):
+        n, m = chol_lower.shape[0], block.shape[0]
+        c = torch.linalg.solve_triangular(chol_lower, cross, upper=False)  # (n, m)
+        block.addmm_(c.T, c, alpha=-1.0)
+        chol_schur = _factor(_sym_(block), config.cholesky_jitter)
+        out = torch.empty((n + m, n + m), dtype=chol_lower.dtype, device=chol_lower.device)
+        out[:n, :n] = chol_lower
+        out[:n, n:] = 0.0
+        out[n:, :n] = c.T
+        out[n:, n:] = chol_schur
+        return out
 
 
 def logdet_from_chol(chol_lower: torch.Tensor) -> torch.Tensor:

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from ..ff import ff_add, ff_const, ff_mul, ff_split, quick_two_sum, two_prod, two_sum
+from ...utils.profiling import span
 from .chol import cholesky as robust_cholesky
 
 
@@ -125,7 +126,9 @@ def _step_a(matvec, sigma_ff, x, p, r, rz):
 
     ``matvec`` is the UNSHIFTED Gram matvec of the ff pair ``p``; the
     ``sigma^2 I`` shift is applied in ff here."""
-    Ap = ff_add(_as_ff(matvec(p), p[0].dtype), ff_mul(p, sigma_ff))
+    with span("lgt.pcg.matvec"):
+        Ap = matvec(p)
+    Ap = ff_add(_as_ff(Ap, p[0].dtype), ff_mul(p, sigma_ff))
     alpha = ff_div(rz, ff_dot(p, Ap))
     x_new = _ff_axpy(alpha, p, x)
     r_new = _ff_axpy((-alpha[0], -alpha[1]), Ap, r)
@@ -168,39 +171,42 @@ def pcg_ff(
     All state stays on ``b``'s device; the host reads one scalar per
     iteration.  The solution is ``x + x_lo`` of the result.
     """
-    b = _as_ff(b, b.dtype) if torch.is_tensor(b) else b
-    dtype = b[0].dtype
-    zeros = torch.zeros_like(b[0])
-    b_norm = float(torch.linalg.vector_norm(b[0].to(torch.float64) + b[1].to(torch.float64)))
-    if b_norm == 0.0:
-        return PCGResult(zeros, 0, 0.0, zeros)
-    sigma_ff = tuple(torch.tensor(c, dtype=dtype, device=zeros.device) for c in ff_const(float(sigma_sq), dtype))
-    x = (zeros, zeros)
-    r = b
-    one = (torch.ones((), dtype=dtype, device=zeros.device), torch.zeros((), dtype=dtype, device=zeros.device))
-    p, rz = _step_b(precond, r, (zeros, zeros), (zeros, zeros), one)
-    threshold2 = (tol * b_norm) ** 2
+    with span("lgt.pcg"):
+        b = _as_ff(b, b.dtype) if torch.is_tensor(b) else b
+        dtype = b[0].dtype
+        zeros = torch.zeros_like(b[0])
+        with span("lgt.host_read"):
+            b_norm = float(torch.linalg.vector_norm(b[0].to(torch.float64) + b[1].to(torch.float64)))
+        if b_norm == 0.0:
+            return PCGResult(zeros, 0, 0.0, zeros)
+        sigma_ff = tuple(torch.tensor(c, dtype=dtype, device=zeros.device) for c in ff_const(float(sigma_sq), dtype))
+        x = (zeros, zeros)
+        r = b
+        one = (torch.ones((), dtype=dtype, device=zeros.device), torch.zeros((), dtype=dtype, device=zeros.device))
+        p, rz = _step_b(precond, r, (zeros, zeros), (zeros, zeros), one)
+        threshold2 = (tol * b_norm) ** 2
 
-    k = 0
-    rn2 = b_norm**2
-    while k < maxiter:
-        r_old, x_old = r, x
-        x, r, rn2_t = _step_a(matvec, sigma_ff, x, p, r, rz)
-        p, rz = _step_b(precond, r, r_old, p, rz)
-        # One host read per iteration: ||r||^2 and r.z together.
-        rn2_k, rz_k = torch.stack([rn2_t, rz[0]]).tolist()
-        if not np.isfinite(rn2_k):
-            x = x_old
-            break
-        k, rn2 = k + 1, rn2_k
-        # r.z <= 0: the preconditioned residual lost definiteness at the
-        # working precision (float32 stagnation), and beta would divide
-        # by it next; stop with the current iterate.
-        if rn2 <= threshold2 or not rz_k > 0:
-            break
-    relres = float(np.sqrt(rn2)) / b_norm
-    x_hi, x_lo = two_sum(x[0], x[1])
-    return PCGResult(x_hi, k, relres, x_lo)
+        k = 0
+        rn2 = b_norm**2
+        while k < maxiter:
+            r_old, x_old = r, x
+            x, r, rn2_t = _step_a(matvec, sigma_ff, x, p, r, rz)
+            p, rz = _step_b(precond, r, r_old, p, rz)
+            # One host read per iteration: ||r||^2 and r.z together.
+            with span("lgt.host_read"):
+                rn2_k, rz_k = torch.stack([rn2_t, rz[0]]).tolist()
+            if not np.isfinite(rn2_k):
+                x = x_old
+                break
+            k, rn2 = k + 1, rn2_k
+            # r.z <= 0: the preconditioned residual lost definiteness at the
+            # working precision (float32 stagnation), and beta would divide
+            # by it next; stop with the current iterate.
+            if rn2 <= threshold2 or not rz_k > 0:
+                break
+        relres = float(np.sqrt(rn2)) / b_norm
+        x_hi, x_lo = two_sum(x[0], x[1])
+        return PCGResult(x_hi, k, relres, x_lo)
 
 
 # -- plain CG ---------------------------------------------------------------------------
@@ -294,11 +300,19 @@ def pcg_block(
     return PCGResult(X, k, relres, torch.zeros_like(X))
 
 
+def _any(flags: torch.Tensor) -> bool:
+    """Whether any flag is set: one read of the device by the host."""
+    with span("lgt.host_read"):
+        return bool(flags.any())
+
+
 def _block_step_a(matvec, sigma_ff, X, P, R, rz, active):
     """The blocked ``_step_a``: one shared matvec of the ``(n, r)`` ff pair
     ``P``, per-column alpha (0 where frozen) and ``||r_j||^2`` (a sum of
     squares of ``hi + lo``, never negative)."""
-    AP = ff_add(_as_ff(matvec(P), P[0].dtype), ff_mul(P, sigma_ff))
+    with span("lgt.pcg.matvec"):
+        AP = matvec(P)
+    AP = ff_add(_as_ff(AP, P[0].dtype), ff_mul(P, sigma_ff))
     pAp = ff_dot_cols(P, AP)
     safe = (pAp[0] != 0) & active
     alpha = ff_div(rz, (torch.where(safe, pAp[0], 1.0), torch.where(safe, pAp[1], 0.0)))
@@ -348,36 +362,38 @@ def pcg_block_ff(
     x_lo`` of the result; ``relative_residual`` is the largest column's,
     ``iterations`` the loop's count.
     """
-    B = _as_ff(B, B.dtype) if torch.is_tensor(B) else B
-    dtype = B[0].dtype
-    zeros = torch.zeros_like(B[0])
-    b_norm2 = torch.sum((B[0].to(torch.float64) + B[1].to(torch.float64)) ** 2, 0)
-    threshold2 = tol**2 * b_norm2
-    sigma_ff = tuple(torch.tensor(c, dtype=dtype, device=zeros.device) for c in ff_const(float(sigma_sq), dtype))
-    X = (zeros, zeros)
-    R = B
-    ones = torch.ones(zeros.shape[1], dtype=dtype, device=zeros.device)
-    active = b_norm2 > 0
-    P, rz = _block_step_b(precond, R, (zeros, zeros), (zeros, zeros), (ones, torch.zeros_like(ones)), active)
-    rn2 = b_norm2
-    k = 0
-    while k < maxiter and bool(active.any()):
-        X_old, R_old = X, R
-        X, R, rn2_t = _block_step_a(matvec, sigma_ff, X, P, R, rz, active)
-        # A column whose residual turned non-finite keeps its last finite iterate.
-        moved = active & torch.isfinite(rn2_t)
-        X = tuple(torch.where(moved[None, :], a, b) for a, b in zip(X, X_old))
-        R = tuple(torch.where(moved[None, :], a, b) for a, b in zip(R, R_old))
-        rn2 = torch.where(moved, rn2_t.to(torch.float64), rn2)
-        P, rz = _block_step_b(precond, R, R_old, P, rz, moved)
-        # r.z <= 0: the column lost definiteness at the working precision
-        # (as in pcg_ff); stop it with the current iterate.
-        active = moved & (rn2 > threshold2) & (rz[0] > 0)
-        k += 1
-    b_norm2 = torch.where(b_norm2 > 0, b_norm2, 1.0)
-    relres = float(torch.max(torch.sqrt(rn2 / b_norm2))) if zeros.shape[1] else 0.0
-    x_hi, x_lo = two_sum(X[0], X[1])
-    return PCGResult(x_hi, k, relres, x_lo)
+    with span("lgt.pcg_block"):
+        B = _as_ff(B, B.dtype) if torch.is_tensor(B) else B
+        dtype = B[0].dtype
+        zeros = torch.zeros_like(B[0])
+        b_norm2 = torch.sum((B[0].to(torch.float64) + B[1].to(torch.float64)) ** 2, 0)
+        threshold2 = tol**2 * b_norm2
+        sigma_ff = tuple(torch.tensor(c, dtype=dtype, device=zeros.device) for c in ff_const(float(sigma_sq), dtype))
+        X = (zeros, zeros)
+        R = B
+        ones = torch.ones(zeros.shape[1], dtype=dtype, device=zeros.device)
+        active = b_norm2 > 0
+        P, rz = _block_step_b(precond, R, (zeros, zeros), (zeros, zeros), (ones, torch.zeros_like(ones)), active)
+        rn2 = b_norm2
+        k = 0
+        while k < maxiter and _any(active):
+            X_old, R_old = X, R
+            X, R, rn2_t = _block_step_a(matvec, sigma_ff, X, P, R, rz, active)
+            # A column whose residual turned non-finite keeps its last finite iterate.
+            moved = active & torch.isfinite(rn2_t)
+            X = tuple(torch.where(moved[None, :], a, b) for a, b in zip(X, X_old))
+            R = tuple(torch.where(moved[None, :], a, b) for a, b in zip(R, R_old))
+            rn2 = torch.where(moved, rn2_t.to(torch.float64), rn2)
+            P, rz = _block_step_b(precond, R, R_old, P, rz, moved)
+            # r.z <= 0: the column lost definiteness at the working precision
+            # (as in pcg_ff); stop it with the current iterate.
+            active = moved & (rn2 > threshold2) & (rz[0] > 0)
+            k += 1
+        b_norm2 = torch.where(b_norm2 > 0, b_norm2, 1.0)
+        with span("lgt.host_read"):
+            relres = float(torch.max(torch.sqrt(rn2 / b_norm2))) if zeros.shape[1] else 0.0
+        x_hi, x_lo = two_sum(X[0], X[1])
+        return PCGResult(x_hi, k, relres, x_lo)
 
 
 # -- Nyström preconditioner ---------------------------------------------------------
@@ -403,20 +419,21 @@ class NystromPreconditioner(NamedTuple):
         factors, float32 pairs: mode ff), else to ``hi``, and returned as
         the result's ff pair in ``hi``'s dtype (a float64 result split, not
         rounded)."""
-        pair = isinstance(r, tuple)
-        r_dtype = r[0].dtype if pair else r.dtype
-        if pair and torch.finfo(self.B.dtype).eps < torch.finfo(r_dtype).eps:
-            rr = r[0].to(self.B.dtype) + r[1].to(self.B.dtype)
-        else:
-            rr = (r[0] if pair else r).to(self.B.dtype)
-        vector = rr.ndim == 1
-        if vector:
-            rr = rr[:, None]
-        w = torch.cholesky_solve(self.B.T @ rr, self.chol_C)
-        out = (rr - self.B @ w) / self.delta
-        if vector:
-            out = out[:, 0]
-        return _as_ff(out, r_dtype) if pair else out.to(r_dtype)
+        with span("lgt.nystrom.apply"):
+            pair = isinstance(r, tuple)
+            r_dtype = r[0].dtype if pair else r.dtype
+            if pair and torch.finfo(self.B.dtype).eps < torch.finfo(r_dtype).eps:
+                rr = r[0].to(self.B.dtype) + r[1].to(self.B.dtype)
+            else:
+                rr = (r[0] if pair else r).to(self.B.dtype)
+            vector = rr.ndim == 1
+            if vector:
+                rr = rr[:, None]
+            w = torch.cholesky_solve(self.B.T @ rr, self.chol_C)
+            out = (rr - self.B @ w) / self.delta
+            if vector:
+                out = out[:, 0]
+            return _as_ff(out, r_dtype) if pair else out.to(r_dtype)
 
 
 def nystrom_preconditioner(K_XZ, K_ZZ, sigma_sq) -> NystromPreconditioner:

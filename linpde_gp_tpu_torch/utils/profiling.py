@@ -1,10 +1,37 @@
-"""Per-stage wall-clock timers and ``torch.profiler`` traces.
+"""Per-stage wall-clock timers, ``torch.profiler`` traces and the program's
+spans.
 
 Port of ``linpde_gp_tpu/utils/profiling.py``: :class:`StageTimer` keeps
 its interface, and :func:`trace` runs ``torch.profiler`` where the JAX
 package runs ``jax.profiler``.  Work on the card is asynchronous, so a
 stage synchronizes the card before each clock read once CUDA is
 initialized; without it a stage would time the enqueue.
+
+:func:`span` marks the program's own work on the profiler's trace, as a
+``user_annotation`` event on the host.  Each device operation of the trace
+(kernel, copy, set) names by its ``correlation`` the host call that
+launched it, and that launch lies inside the spans open at the time, so
+the device's work can be charged to the span that caused it.  Run any call
+under ``torch.profiler.profile()`` to see them; with no profiler running a
+span is one flag check.  The spans:
+
+- ``lgt.nystrom.build``: the Nyström preconditioner's build
+  (``models/iterative.py::_preconditioner``), when it builds;
+- ``lgt.nystrom.apply``: one Woodbury apply
+  (``ops/linalg/pcg.py::NystromPreconditioner.__call__``);
+- ``lgt.pcg``, ``lgt.pcg_block``: one whole solve of :func:`pcg_ff`, of
+  :func:`pcg_block_ff`;
+- ``lgt.pcg.matvec``: the matvec of one CG iteration, in either;
+- ``lgt.host_read``: each read of the device by the host in either CG
+  (``pcg_ff``: ``||b||`` and one per iteration; ``pcg_block_ff``: the
+  loop's flag per iteration and the final residual);
+- ``lgt.chol.factor``: one Cholesky with its jitter retries
+  (``ops/linalg/chol.py::_factor``); ``lgt.chol.extend``: one
+  :func:`chol_extend`;
+- ``lgt.gp.mean``, ``lgt.gp.var``: the dense posterior's mean and
+  variance (``models/gp.py``); ``lgt.gp.var.solve``: the variance's
+  triangular (or refined) solve; ``lgt.gp.crosscov``: the cross-covariance
+  that either evaluates.
 """
 
 from __future__ import annotations
@@ -14,6 +41,19 @@ import os
 import time
 
 import torch
+
+
+#: The span's stand-in when no profiler runs: one shared, reusable no-op.
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named span of the program on the profiler's trace
+    (``torch.profiler.record_function``), or, with no profiler running,
+    the shared no-op :data:`_OFF`: it creates no ``RecordFunction``."""
+    if not torch._C._autograd._profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function(name)
 
 
 def _sync() -> None:
