@@ -92,6 +92,9 @@ Phases, each printed as it finishes:
                 (:class:`Spans`), of the mean, std (and per 256 queries) and
                 cov.matrix; the route of each mean block (K2 or evaluate @
                 w) and the mean's own launches; the peak device memory.
+                Then the std's blocked substitution against cuBLAS's dtrsm
+                at 16 to 8,192 queries, both timed, with a sweep of the
+                panel size (:func:`check_blocked_std`).
                 Checked: every mean block launched K2 once and no K1; the
                 engine launched K1 and K2 at r = 1 and nothing else; the
                 largest K1 block (launched again on its operands, timed with
@@ -404,6 +407,11 @@ DENSE_N = 32768
 #: diagonal and var's column sum round the same ~3e4 products, which sum to
 #: about the prior variance, in different orders.
 DIAG_BOUND = 1e-13
+
+#: The blocked std's batches (the benchmark's query batches span 16-1,024),
+#: and the panel sizes its sweep times.
+BLOCKED_STD_BATCHES = (16, 242, 830, 1024, 8192)
+BLOCKED_STD_PANELS = (512, 1024, 2048)
 
 failures: list[str] = []
 card = "unknown"
@@ -1702,6 +1710,92 @@ def _check_dense_kernels(spans, tag, on_card) -> dict:
     return out
 
 
+def _panel_spans(fn) -> dict:
+    """Counts of the ``lgt.chol.panel_*`` spans while ``fn()`` runs."""
+    import torch
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fn()
+        sync()
+    names = [e.name for e in prof.events() if e.name.startswith("lgt.chol.panel")]
+    return {k: names.count(k) for k in ("lgt.chol.panel_inv", "lgt.chol.panel_solve")}
+
+
+def check_blocked_std(post, Xq, tag, on_card, reps=5) -> dict:
+    """The variance's blocked substitution (``chol.panel_solve_sumsq``, the
+    route ``var`` takes at this size) against cuBLAS's ``dtrsm`` route
+    (``torch.linalg.solve_triangular``) at each of ``BLOCKED_STD_BATCHES``
+    query points: var by both, and a reference's, dtrsm refined twice
+    (``q += L^-1 (u - L q)``).  Checked per batch: the two routes within
+    1e-12 of the prior variance, and the blocked var within 1e-8 of var per
+    query of the reference's (var is up to ~3e6 times smaller than the prior
+    variance it is taken from, so a per-query gap of 1e-12 between two
+    float64 orders cannot hold; the explicit inverses alone, unrefined, read
+    2e-8 to 1e-7).  Timed with CUDA events (median of ``reps``, after one
+    untimed run): each route's solve, and the blocked one at each panel
+    size of ``BLOCKED_STD_PANELS`` with its inverses' build.  The route
+    engages: two ``var`` calls of a posterior without inverses build them
+    once and take the blocked solve twice (``lgt.chol.panel_*`` span
+    counts)."""
+    import torch
+
+    from linpde_gp_tpu_torch.ops.linalg import chol as chol_ops
+
+    L = post.gram_cholesky
+    n = L.shape[0]
+    dev = L.device
+
+    def median_ms(fn):
+        fn()
+        sync()
+        if not on_card:
+            return None
+        return sorted(timed(fn)[0] for _ in range(reps))[reps // 2]
+
+    out = {"n": n, "panel_rows": chol_ops.PANEL_ROWS}
+    post._panels = None
+    xs = torch.as_tensor(Xq[:2], dtype=torch.float64, device=dev)
+    out["spans"] = _panel_spans(lambda: (post.var(xs), post.var(xs)))
+    check(n <= chol_ops.PANEL_ROWS or out["spans"] == {"lgt.chol.panel_inv": 1, "lgt.chol.panel_solve": 2},
+          f"{tag}: two var calls built the panel inverses once and took the blocked solve twice: {out['spans']}")
+    out["refined_panels"] = [k for k, p in enumerate(post._panels.refine) if p is not None]
+    panels = {nb: chol_ops.panel_inverses(L, nb) for nb in BLOCKED_STD_PANELS}
+    out["build_ms"] = {nb: median_ms(lambda: chol_ops.panel_inverses(L, nb)) for nb in BLOCKED_STD_PANELS}
+    rows = []
+    for b in BLOCKED_STD_BATCHES:
+        xq = torch.as_tensor(Xq[:b], dtype=torch.float64, device=dev)
+        u = post.kLas.evaluate(xq).reshape(-1, n).T
+        pv = post.prior.var(xq)
+        q = torch.linalg.solve_triangular(L, u, upper=False)
+        for _ in range(2):
+            q += torch.linalg.solve_triangular(L, u - L @ q, upper=False)
+        ref = pv - torch.sum(q * q, 0)
+        del q
+        v_blk = post.var(xq)
+        v_cub = pv - torch.sum(torch.linalg.solve_triangular(L, u, upper=False) ** 2, 0)
+        row = dict(b=b, pv_over_var=(pv / ref).max().item(),
+                   vs_cublas_of_prior=((v_blk - v_cub).abs() / pv).max().item(),
+                   blocked_err=((v_blk - ref).abs() / ref).max().item(),
+                   cublas_err=((v_cub - ref).abs() / ref).max().item(),
+                   cublas_ms=median_ms(lambda: torch.linalg.solve_triangular(L, u, upper=False)),
+                   blocked_ms={nb: median_ms(lambda: chol_ops.panel_solve_sumsq(L, panels[nb], u))
+                               for nb in BLOCKED_STD_PANELS})
+        rows.append(row)
+        check(row["vs_cublas_of_prior"] <= 1e-12,
+              f"{tag}: blocked vs dtrsm var at {b} queries {row['vs_cublas_of_prior']:.3e} of the prior variance "
+              "<= 1e-12")
+        check(row["blocked_err"] <= 1e-8,
+              f"{tag}: blocked var at {b} queries {row['blocked_err']:.3e} of var per query vs dtrsm refined twice "
+              f"<= 1e-8 (dtrsm alone: {row['cublas_err']:.3e})")
+        if on_card:
+            log(f"  {tag}: std solve at b = {b}: dtrsm {row['cublas_ms']:.3f} ms, blocked "
+                + ", ".join(f"nb {nb} {ms:.3f} ms" for nb, ms in row["blocked_ms"].items()))
+        del u
+    out["batches"] = rows
+    log(f"dense[{tag} blocked std] " + json.dumps(out))
+    return out
+
+
 def condition_dense_ibvp(prior, H, X, Xa, Ya, cuts, noise, anchor_noise):
     """The dense IBVP posterior: ``prior`` conditioned on the anchors
     ``Xa[cuts[i]:cuts[i + 1]]`` one set at a time (noise ``anchor_noise``),
@@ -1794,6 +1888,7 @@ def run_dense_path(n, nq, *, device="cuda", n_ic=96, n_bc=48, noise_rel=1e-3, an
         out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     log(f"  {tag}: engine launches {out['launches']}; the mean's {out['mean_launches']}; "
         f"routes by block (IC, BC x=-1, BC x=1, PDE): {routes}")
+    out["blocked_std"] = check_blocked_std(post, Xq, tag, on_card)
     check(post.gram_cholesky.shape == (n + Xa.shape[0],) * 2 and post.gram_cholesky.dtype == torch.float64,
           f"{tag}: one f64 factor of {n + Xa.shape[0]}^2, grown by chol_extend {spans.calls['chol_extend']} times")
     check(spans.calls["chol_extend"] == 3, f"{tag}: chol_extend ran 3 times")

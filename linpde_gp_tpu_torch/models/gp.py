@@ -9,8 +9,11 @@ runs in float64 on the process's device (``device=``, default
 ``ops/gram.gram_matrix`` (K1 on the card), the posterior mean's
 ``kLas(x) @ w`` from K2 where ``ops/crosscov/base.py`` routes it there,
 and the factor, its extension and the triangular solves are cuSOLVER and
-cuBLAS calls through torch.  With ``config.solve_refinement`` the factor
-alone is float32 and solves are refined in float64
+cuBLAS calls through torch, but for the variance's solve against a factor
+of two panels or more: a blocked substitution of float64 matrix products
+(``ops/linalg/chol.py::panel_solve_sumsq``).  With
+``config.solve_refinement`` the factor alone is float32 and solves are
+refined in float64
 (``ops/linalg/refine.py``).  Inputs may be numpy arrays or tensors; the
 results are tensors on the process's device.  The JAX package's
 ``*_jit`` properties have no counterpart: there is no jit to cache.
@@ -28,6 +31,7 @@ from ..ops.functionals.base import LinearFunctional
 from ..ops.functionals.evaluation import _EvaluationFunctional
 from ..ops.kernels.base import CovarianceFunction
 from ..ops.linalg import refine
+from ..ops.linalg import chol as chol_ops
 from ..ops.linalg.chol import cho_solve, chol_extend, cholesky, logdet_from_chol, solve_triangular
 from ..utils.profiling import span
 from .functions.base import Function
@@ -230,6 +234,9 @@ class ConditionalGaussianProcess(GaussianProcess):
         self._residuals = _state(residuals, device)
         self._representer_weights = _state(representer_weights, device)
         self._solve = _CholSolve(chol) if solve is None else solve
+        # The factor's inverted diagonal panels, built by the first ``var``
+        # that takes the blocked solve; not pickled.
+        self._panels = None
         # The covariance takes the refined solver only in refinement mode (a
         # Gram is kept); with a float64 factor it takes the triangular paths,
         # as ``var`` does, where the JAX package's first posterior passes its
@@ -241,8 +248,14 @@ class ConditionalGaussianProcess(GaussianProcess):
         )
 
     # -- checkpoints: the device is where the tensors were loaded ----------------
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        del state["_panels"]
+        return state
+
     def __setstate__(self, state):
         self.__dict__.update(state)
+        self._panels = None
         self._device = self._chol.device
         self._prior._device = self._device
 
@@ -359,12 +372,16 @@ class ConditionalGaussianProcess(GaussianProcess):
             n = u.shape[-1]
             ut = u.reshape(-1, n).T
             with span("lgt.gp.var.solve"):
-                if self._gram is None:
-                    q = solve_triangular(self._chol, ut)
-                    update = torch.sum(q**2, 0).reshape(u.shape[:-1])
+                if self._gram is not None:
+                    update = torch.sum(ut * self._solve(ut), 0)
+                elif n > chol_ops.PANEL_ROWS:
+                    # Two panels or more: the blocked substitution.
+                    if self._panels is None:
+                        self._panels = chol_ops.panel_inverses(self._chol)
+                    update = chol_ops.panel_solve_sumsq(self._chol, self._panels, ut)
                 else:
-                    update = torch.sum(ut * self._solve(ut), 0).reshape(u.shape[:-1])
-            return torch.clamp(prior_var - update, min=0.0)
+                    update = torch.sum(solve_triangular(self._chol, ut) ** 2, 0)
+            return torch.clamp(prior_var - update.reshape(u.shape[:-1]), min=0.0)
 
 
 class ConditionalMean(Function):

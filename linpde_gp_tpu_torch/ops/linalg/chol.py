@@ -12,9 +12,21 @@ observation block,
 
 writing ``L'`` into one preallocated tensor (the JAX package concatenates
 three times; at n = 32,768 each copy is 8.6 GB in float64).
+
+The posterior variance needs ``sum(q**2)`` per column of ``q = L^{-1} u``.
+:func:`panel_solve_sumsq` computes it as a forward substitution by panels
+of :data:`PANEL_ROWS` rows over the inverses of ``L``'s diagonal panels
+(:func:`panel_inverses`, built once per factor), as MAGMA's ``dtrsm``
+does: every step is a float64 matrix product (an ill-conditioned panel's
+refined once), and the chain of dependent steps is one per panel, where
+cuBLAS's ``dtrsm`` walks the diagonal 32 rows at a time whatever the width
+of ``u``.  The JAX package leaves this solve to XLA.
 """
 
 from __future__ import annotations
+
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -23,6 +35,15 @@ from ...utils.profiling import span
 
 #: Rows of the blocks :func:`_sym_` symmetrizes at once.
 _SYM_BLOCK = 4096
+#: Rows of a diagonal panel of :func:`panel_inverses` and
+#: :func:`panel_solve_sumsq` (chosen on the H100 at n = 32,960: PERF.md).
+PANEL_ROWS = 1024
+#: The infinity-norm condition number above which a panel's solve in
+#: :func:`panel_solve_sumsq` is refined.  On the dense IBVP at n = 32,960 the
+#: anchors' panel reads 6,945 and the 32 others at most 97: refining the
+#: first takes the variance's error from ~1e-7 to ~1e-9 of var, refining the
+#: rest as well changes no digit of it and costs 1-2 ms a solve (PERF.md).
+_REFINE_COND = 100.0
 
 
 def _sym(a: torch.Tensor) -> torch.Tensor:
@@ -115,6 +136,62 @@ def chol_extend(chol_lower: torch.Tensor, cross: torch.Tensor, block: torch.Tens
         out[n:, :n] = c.T
         out[n:, n:] = chol_schur
         return out
+
+
+class Panels(NamedTuple):
+    """A lower factor's diagonal panels, as :func:`panel_solve_sumsq`
+    takes them (:func:`panel_inverses`)."""
+
+    #: ``(panels, nb, nb)`` inverses; a ragged last panel is padded with the
+    #: identity, so its inverse is the leading block of the padded one's.
+    inverses: torch.Tensor
+    #: Per panel, its lower triangle where the solve refines it (its
+    #: condition number exceeds :data:`_REFINE_COND`), else ``None``.
+    refine: tuple
+
+
+def panel_inverses(chol_lower: torch.Tensor, nb: int | None = None) -> Panels:
+    """The diagonal panels of ``nb`` rows (``None``: :data:`PANEL_ROWS`) of
+    a lower factor, inverted in its dtype by one batched triangular solve
+    against the identity, and kept where their solve is to be refined."""
+    nb = PANEL_ROWS if nb is None else nb
+    with span("lgt.chol.panel_inv"):
+        n = chol_lower.shape[0]
+        eye = torch.eye(nb, dtype=chol_lower.dtype, device=chol_lower.device)
+        panels = eye.repeat(-(-n // nb), 1, 1)
+        for k, k0 in enumerate(range(0, n, nb)):
+            k1 = min(n, k0 + nb)
+            panels[k, : k1 - k0, : k1 - k0] = torch.tril(chol_lower[k0:k1, k0:k1])
+        inverses = torch.linalg.solve_triangular(panels, eye.expand_as(panels), upper=False)
+        cond = torch.linalg.matrix_norm(panels, ord=math.inf) * torch.linalg.matrix_norm(inverses, ord=math.inf)
+        return Panels(inverses, tuple(p.clone() if c > _REFINE_COND else None for p, c in zip(panels, cond.tolist())))
+
+
+def panel_solve_sumsq(chol_lower: torch.Tensor, panels: Panels, b: torch.Tensor) -> torch.Tensor:
+    """Column sums of squares of ``q = L^{-1} b`` for a lower factor ``L``
+    (``chol_lower``, ``(n, n)``), its :func:`panel_inverses` and ``b`` of
+    shape ``(n, m)``: a right-looking forward substitution, per panel ``k``
+    ``q_k = inv(L_kk) b_k``, then ``b_{>k} -= L_{>k,k} q_k``: matrix
+    products on views of ``L`` (no copy of it).  A product with an explicit
+    inverse errs by about ``cond(L_kk) eps``, which the variance's
+    cancellation (prior variance over posterior, up to ~3e6) multiplies, so
+    an ill-conditioned panel's ``q_k`` is refined once, ``q_k += inv(L_kk)
+    (b_k - L_kk q_k)``, which makes it as accurate as a substitution.  ``b``
+    is copied once, and the copy holds ``q`` as it is solved; ``b`` itself
+    is left as it is."""
+    with span("lgt.chol.panel_solve"):
+        n, nb = chol_lower.shape[0], panels.inverses.shape[-1]
+        rest = b.clone()
+        for inv, lower, k0 in zip(panels.inverses, panels.refine, range(0, n, nb)):
+            r = min(nb, n - k0)
+            inv = inv[:r, :r]
+            q = inv @ rest[k0:k0 + r]
+            if lower is not None:
+                q.addmm_(inv, torch.addmm(rest[k0:k0 + r], lower[:r, :r], q, alpha=-1.0))
+            rest[k0:k0 + r] = q
+            if k0 + r < n:
+                rest[k0 + r:].addmm_(chol_lower[k0 + r:, k0:k0 + r], q, alpha=-1.0)
+        return torch.sum(rest.square_(), 0)
 
 
 def logdet_from_chol(chol_lower: torch.Tensor) -> torch.Tensor:

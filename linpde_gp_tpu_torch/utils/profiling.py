@@ -27,7 +27,9 @@ span is one flag check.  The spans:
   loop's flag per iteration and the final residual);
 - ``lgt.chol.factor``: one Cholesky with its jitter retries
   (``ops/linalg/chol.py::_factor``); ``lgt.chol.extend``: one
-  :func:`chol_extend`;
+  :func:`chol_extend`; ``lgt.chol.panel_inv``: one build of a factor's
+  inverted diagonal panels (``panel_inverses``); ``lgt.chol.panel_solve``:
+  one blocked substitution (``panel_solve_sumsq``);
 - ``lgt.gp.mean``, ``lgt.gp.var``: the dense posterior's mean and
   variance (``models/gp.py``); ``lgt.gp.var.solve``: the variance's
   triangular (or refined) solve; ``lgt.gp.crosscov``: the cross-covariance

@@ -287,6 +287,25 @@ def test_slice_heat_ibvp_matches_jax():
     _close_to_jax(post.std(xq), jpost.std(xq), tol=1e-9)
 
 
+def test_blocked_var_matches_substitution_and_jax(monkeypatch):
+    """The IBVP slice at anchor noise 1e-5 (the benchmark cell's): with
+    panels of 64 rows its 328-row factor takes the blocked substitution, whose
+    var is within 1e-10 of the substitution route's per query, and whose std
+    is the JAX posterior's as in the slice test."""
+    from linpde_gp_tpu_torch.ops.linalg import chol as chol_ops
+
+    xq = _heat_points(np.random.default_rng(11), 60)
+    post = _ibvp(lgt, diffops, anchor_noise=1e-5)
+    jpost = _ibvp(jlgt, jdiffops, anchor_noise=1e-5)
+    substituted = post.var(xq)
+    assert post._panels is None
+    monkeypatch.setattr(chol_ops, "PANEL_ROWS", 64)
+    blocked = post.var(xq)
+    assert post._panels.inverses.shape == (6, 64, 64)
+    assert torch.all((blocked - substituted).abs() <= 1e-10 * substituted)
+    _close_to_jax(post.std(xq), jpost.std(xq), tol=1e-9)
+
+
 def test_state_carried_across_from_jax():
     """A port posterior built from the JAX posterior's chol, residuals and
     representer weights (numpy) evaluates mean, var and cov.matrix as JAX

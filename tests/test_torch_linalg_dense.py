@@ -5,7 +5,12 @@ Ports of ``tests/test_linalg.py`` (``chol_extend``, triangular solves,
 ladder, the linop solve surface, the plain ``pcg`` and the posterior
 checkpoint): each keeps the JAX original's check and tolerance and holds
 the port's result to the JAX function's on the same seeded numpy inputs.
+The variance's blocked substitution (``panel_inverses``,
+``panel_solve_sumsq``), which the JAX package leaves to XLA, is held to
+``torch.linalg.solve_triangular`` at small panels.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -27,6 +32,8 @@ from linpde_gp_tpu_torch.ops.linalg import (
     logdet_from_chol,
     solve_triangular,
 )
+from linpde_gp_tpu_torch.ops.linalg import chol as chol_ops
+from linpde_gp_tpu_torch.ops.linalg.chol import panel_inverses, panel_solve_sumsq
 from linpde_gp_tpu_torch.ops.linalg.pcg import pcg
 from linpde_gp_tpu_torch.config import config
 
@@ -204,3 +211,73 @@ def test_posterior_checkpoint_roundtrip(rng, tmp_path):
     assert np.isfinite(float(more.mean(np.asarray(0.3))))
     ref = post.condition_on_observations(np.asarray([0.0]), X=np.asarray([0.5]))
     np.testing.assert_allclose(more.mean(xq).numpy(), ref.mean(xq).numpy(), atol=1e-12)
+
+
+def _factor(rng, n):
+    return torch.linalg.cholesky(T(random_spd(rng, n) / n))
+
+
+@pytest.mark.parametrize("n", [256, 250])
+@pytest.mark.parametrize("b", [1, 7, 67])
+@pytest.mark.parametrize("refine", [False, True])
+def test_panel_solve_sumsq_matches_substitution(rng, monkeypatch, n, b, refine):
+    """Panels of 64 rows, n a multiple of them and not, each panel's solve
+    refined or not: the column norms of L^-1 u within 1e-12 of the
+    substitution's; u is left as it was."""
+    monkeypatch.setattr(chol_ops, "_REFINE_COND", 0.0 if refine else math.inf)
+    L = _factor(rng, n)
+    u = T(rng.standard_normal((n, b)))
+    u0 = u.clone()
+    panels = panel_inverses(L, 64)
+    assert all((p is not None) == refine for p in panels.refine)
+    sumsq = panel_solve_sumsq(L, panels, u)
+    norm = torch.linalg.vector_norm(torch.linalg.solve_triangular(L, u, upper=False), dim=0)
+    assert sumsq.shape == (b,) and torch.equal(u, u0)
+    assert torch.all((sumsq.sqrt() - norm).abs() <= 1e-12 * norm)
+
+
+def test_panel_inverses_match_per_panel_solves(rng):
+    """Each panel's inverse as its own triangular solve against I, the
+    ragged last one padded with I; a panel is kept for refinement where its
+    condition number exceeds the bound, and only there."""
+    n, nb = 250, 64
+    L = _factor(rng, n)
+    L[nb:2 * nb, nb:2 * nb].diagonal().mul_(torch.logspace(0, -4, nb, dtype=torch.float64))
+    panels = panel_inverses(L, nb)
+    assert panels.inverses.shape == (4, nb, nb) and panels.inverses.dtype == torch.float64
+    for k, k0 in enumerate(range(0, n, nb)):
+        r = min(nb, n - k0)
+        block = L[k0:k0 + r, k0:k0 + r]
+        ref = torch.linalg.solve_triangular(block, torch.eye(r, dtype=torch.float64), upper=False)
+        inv = panels.inverses[k]
+        assert (inv[:r, :r] - ref).abs().max() <= 1e-12 * ref.abs().max()
+        assert torch.equal(inv[r:, r:], torch.eye(nb - r, dtype=torch.float64))
+        assert not inv[r:, :r].any() and not inv[:r, r:].any()
+        cond = torch.linalg.cond(block, p=math.inf)
+        assert (panels.refine[k] is not None) == bool(cond > chol_ops._REFINE_COND)
+        if panels.refine[k] is not None:
+            assert torch.equal(panels.refine[k][:r, :r], block)
+    assert [p is not None for p in panels.refine] == [False, True, False, False]
+
+
+def test_posterior_checkpoint_without_panel_inverses(rng, tmp_path, monkeypatch):
+    """A posterior whose std built its panel inverses (panels of 8 rows, a
+    factor of 20) is written without them, and std after loading, which
+    builds them again, equals std before."""
+    import linpde_gp_tpu_torch as lgt
+    from linpde_gp_tpu_torch.utils.serialization import load_posterior, save_posterior
+
+    monkeypatch.setattr(chol_ops, "PANEL_ROWS", 8)
+    prior = lgt.GaussianProcess(lgt.functions.Zero(()), lgt.kernels.Matern((), nu=2.5, lengthscales=0.7))
+    X = np.sort(rng.uniform(-1, 1, 20))
+    post = prior.condition_on_observations(np.sin(X), X=X, b=lgt.Normal(np.zeros(20), np.full(20, 1e-4)))
+    xq = np.linspace(-1, 1, 9)
+    sd = post.std(xq)
+    assert post._panels.inverses.shape == (3, 8, 8)
+    assert "_panels" not in post.__getstate__()
+    path = tmp_path / "posterior.pt"
+    save_posterior(path, post)
+    restored = load_posterior(path, device="cpu")
+    assert restored._panels is None
+    assert torch.equal(restored.std(xq), sd)
+    assert torch.equal(restored._panels.inverses, post._panels.inverses)

@@ -3,9 +3,11 @@ and absent with no profiler running, every span of the module's list
 emitted and nested under ``torch.profiler``, and the same outputs to the bit
 with and without it.
 
-Two small paths cover every span: the gram-free heat regressor (N = 800,
-rank 64: ``representer_weights``, ``mean``, ``var`` at one block) and the
-dense engine on the anchored heat IBVP (``mean`` and ``std``)."""
+Three small paths cover every span: the gram-free heat regressor (N = 800,
+rank 64: ``representer_weights``, ``mean``, ``var`` at one block), the
+dense engine on the anchored heat IBVP (``mean`` and ``std``), and the same
+with panels of 64 rows, so that ``std``, taken twice, runs the blocked
+substitution twice and builds its panel inverses once."""
 
 import numpy as np
 import pytest
@@ -13,6 +15,7 @@ import torch
 
 import linpde_gp_tpu_torch as lgt
 from linpde_gp_tpu_torch.config import config
+from linpde_gp_tpu_torch.ops.linalg import chol as chol_ops
 from linpde_gp_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
@@ -22,10 +25,12 @@ HEAT_SPANS = {"lgt.nystrom.build", "lgt.nystrom.apply", "lgt.pcg", "lgt.pcg_bloc
               "lgt.host_read", "lgt.chol.factor"}
 DENSE_SPANS = {"lgt.chol.factor", "lgt.chol.extend", "lgt.gp.mean", "lgt.gp.var", "lgt.gp.var.solve",
                "lgt.gp.crosscov"}
+PANEL_SPANS = DENSE_SPANS | {"lgt.chol.panel_inv", "lgt.chol.panel_solve"}
 #: Each span and the spans one of which must hold it.
 PARENTS = {"lgt.pcg.matvec": ("lgt.pcg", "lgt.pcg_block"), "lgt.nystrom.apply": ("lgt.pcg", "lgt.pcg_block"),
            "lgt.host_read": ("lgt.pcg", "lgt.pcg_block"), "lgt.gp.var.solve": ("lgt.gp.var",),
-           "lgt.gp.crosscov": ("lgt.gp.mean", "lgt.gp.var")}
+           "lgt.gp.crosscov": ("lgt.gp.mean", "lgt.gp.var"), "lgt.chol.panel_inv": ("lgt.gp.var.solve",),
+           "lgt.chol.panel_solve": ("lgt.gp.var.solve",)}
 
 
 def _prior():
@@ -51,8 +56,9 @@ def _heat():
     return out, [reg.solve_info[0] + 1]
 
 
-def _dense():
-    """The dense engine conditioned on three anchor sets, then on the PDE."""
+def _dense_posterior():
+    """The dense engine conditioned on three anchor sets, then on the PDE,
+    and 40 query points."""
     rng = np.random.default_rng(6)
     prior, H = _prior()
     post = prior
@@ -63,10 +69,25 @@ def _dense():
         post = post.condition_on_observations(ya, X=xa, b=lgt.Normal(np.zeros(len(xa)), np.full(len(xa), 1e-8)))
     X, xq = _points(rng, 300), _points(rng, 40)
     post = post.condition_on_observations(np.zeros(300), X=X, L=H, b=lgt.Normal(np.zeros(300), np.full(300, 1e-6)))
+    return post, xq
+
+
+def _dense():
+    post, xq = _dense_posterior()
     return {"mean": post.mean(xq), "std": post.std(xq)}, []
 
 
-PATHS = {"heat": (_heat, HEAT_SPANS), "dense": (_dense, DENSE_SPANS)}
+def _dense_panels():
+    """``std`` twice with panels of 64 rows (the factor has 324)."""
+    saved, chol_ops.PANEL_ROWS = chol_ops.PANEL_ROWS, 64
+    try:
+        post, xq = _dense_posterior()
+        return {"mean": post.mean(xq), "std": post.std(xq), "std_again": post.std(xq[:7])}, []
+    finally:
+        chol_ops.PANEL_ROWS = saved
+
+
+PATHS = {"heat": (_heat, HEAT_SPANS), "dense": (_dense, DENSE_SPANS), "dense_panels": (_dense_panels, PANEL_SPANS)}
 
 
 def _profiled(fn):
@@ -123,6 +144,15 @@ def test_host_reads_per_solve(runs):
     _, spans, expected, _ = runs["heat"]
     solves = [s for s in spans if s[0] == "lgt.pcg"]
     assert [sum(1 for r in spans if r[0] == "lgt.host_read" and _inside(r, s)) for s in solves] == expected
+
+
+def test_panel_spans_per_solve(runs):
+    """One ``lgt.chol.panel_solve`` in each ``lgt.gp.var.solve``, and one
+    ``lgt.chol.panel_inv`` in the first only: the inverses are built once."""
+    _, spans, _, _ = runs["dense_panels"]
+    solves = [s for s in spans if s[0] == "lgt.gp.var.solve"]
+    inside = [[r[0] for r in spans if r[0].startswith("lgt.chol.panel") and _inside(r, s)] for s in solves]
+    assert [sorted(i) for i in inside] == [["lgt.chol.panel_inv", "lgt.chol.panel_solve"], ["lgt.chol.panel_solve"]]
 
 
 @pytest.mark.parametrize("path", list(PATHS))
