@@ -247,16 +247,17 @@ class IterativeGPRegressor:
         dt = mode_dtype(self._anchor_mode)
         X1 = torch.as_tensor(anchor_X).reshape((-1,) + tuple(self.prior.input_shape))
         X1 = X1.reshape(X1.shape[0], -1).to(device=self.device, dtype=dt).contiguous()
-        A11 = gram_matrix(self.prior.cov, X1, X1, self._anchor_mode)
-        A11 = A11 + float(anchor_noise) * torch.eye(X1.shape[0], dtype=dt, device=self.device)
-        self._anchors = dict(
-            X1=X1,
-            Y1=torch.as_tensor(anchor_Y).reshape(-1).to(device=self.device, dtype=dt),
-            k_Lk=k_Lk,
-            noise=float(anchor_noise),
-            chol1=cholesky(A11, jitter=0.0),
-            W=gram_matrix(k_Lk, self.X.to(dt), X1, self._anchor_mode),  # (n, n1)
-        )
+        with span("lgt.anchor.setup"):
+            A11 = gram_matrix(self.prior.cov, X1, X1, self._anchor_mode)
+            A11 = A11 + float(anchor_noise) * torch.eye(X1.shape[0], dtype=dt, device=self.device)
+            self._anchors = dict(
+                X1=X1,
+                Y1=torch.as_tensor(anchor_Y).reshape(-1).to(device=self.device, dtype=dt),
+                k_Lk=k_Lk,
+                noise=float(anchor_noise),
+                chol1=cholesky(A11, jitter=0.0),
+                W=gram_matrix(k_Lk, self.X.to(dt), X1, self._anchor_mode),  # (n, n1)
+            )
 
     # -- checkpoint / resume (utils/serialization.py) ------------------------------
     # The solved state and the geometry pickle; the banded schedule, the
@@ -294,10 +295,11 @@ class IterativeGPRegressor:
             out = scale * out if scale != 1.0 else out
         a = self._anchors
         if a is not None:
-            dt = a["W"].dtype
-            U0 = gram_matrix(a["k_Lk"], x0.to(dt), a["X1"], self._anchor_mode)
-            U1 = gram_matrix(a["k_Lk"], x1.to(dt), a["X1"], self._anchor_mode)
-            out = out.to(dt) - U0 @ cho_solve(a["chol1"], U1.T)
+            with span("lgt.anchor.precond"):
+                dt = a["W"].dtype
+                U0 = gram_matrix(a["k_Lk"], x0.to(dt), a["X1"], self._anchor_mode)
+                U1 = gram_matrix(a["k_Lk"], x1.to(dt), a["X1"], self._anchor_mode)
+                out = out.to(dt) - U0 @ cho_solve(a["chol1"], U1.T)
         return out
 
     def _preconditioner(self):
@@ -359,10 +361,11 @@ class IterativeGPRegressor:
         a = self._anchors
         if a is None:
             return out
-        dt = a["W"].dtype
-        v = v_ff[0].to(dt) + v_ff[1].to(dt)
-        out = out[0].to(dt) + out[1].to(dt) if self.mode == "ff" else out.to(dt)
-        return out - a["W"] @ cho_solve(a["chol1"], a["W"].T @ v)
+        with span("lgt.anchor.schur"):
+            dt = a["W"].dtype
+            v = v_ff[0].to(dt) + v_ff[1].to(dt)
+            out = out[0].to(dt) + out[1].to(dt) if self.mode == "ff" else out.to(dt)
+            return out - a["W"] @ cho_solve(a["chol1"], a["W"].T @ v)
 
     def _solve_device_cg(self, rhs: torch.Tensor):
         res = pcg_ff(
@@ -433,17 +436,19 @@ class IterativeGPRegressor:
             if m_obs is not None:
                 resid = resid - m_obs
             if a is not None:
-                r1 = a["Y1"]
-                m1 = self._mean_at(self.prior.mean, a["X1"])
-                if m1 is not None:
-                    r1 = r1 - m1.to(r1)
-                resid = resid.to(r1) - a["W"] @ cho_solve(a["chol1"], r1)
+                with span("lgt.anchor.weights"):
+                    r1 = a["Y1"]
+                    m1 = self._mean_at(self.prior.mean, a["X1"])
+                    if m1 is not None:
+                        r1 = r1 - m1.to(r1)
+                    resid = resid.to(r1) - a["W"] @ cho_solve(a["chol1"], r1)
             rhs = ff_split(resid.double(), self.X.dtype) if self.mode == "ff" else resid.to(self.X.dtype)
             self._weights = self._solve_device_cg(rhs)
             if a is not None:
-                dt = a["W"].dtype
-                w = self._weights[0].to(dt) + self._weights[1].to(dt)
-                self._anchor_weights = cho_solve(a["chol1"], r1 - a["W"].T @ w)
+                with span("lgt.anchor.weights"):
+                    dt = a["W"].dtype
+                    w = self._weights[0].to(dt) + self._weights[1].to(dt)
+                    self._anchor_weights = cho_solve(a["chol1"], r1 - a["W"].T @ w)
         return self._weights
 
     @property
@@ -495,9 +500,10 @@ class IterativeGPRegressor:
             mu = gram_matvec(self._cross_spec, xq, self.X, w[0], self.mode)
         a = self._anchors
         if a is not None:
-            dt = a["W"].dtype
-            k1 = gram_matrix(self.prior.cov, xq.to(dt), a["X1"], self._anchor_mode)
-            mu = mu.to(dt) + k1 @ self._anchor_weights
+            with span("lgt.anchor.mean"):
+                dt = a["W"].dtype
+                k1 = gram_matrix(self.prior.cov, xq.to(dt), a["X1"], self._anchor_mode)
+                mu = mu.to(dt) + k1 @ self._anchor_weights
         m = self._mean_at(None if self.prior is None else self.prior.mean, xq)
         if m is not None:
             mu = mu.to(m) + m

@@ -30,6 +30,15 @@ span is one flag check.  The spans:
   :func:`chol_extend`; ``lgt.chol.panel_inv``: one build of a factor's
   inverted diagonal panels (``panel_inverses``); ``lgt.chol.panel_solve``:
   one blocked substitution (``panel_solve_sumsq``);
+- ``lgt.anchor.setup``: the anchor batch's blocks of one regressor
+  (``models/iterative.py::_setup_anchors``: ``A11``, its factor, ``W``);
+  ``lgt.anchor.schur``: the Schur correction ``W A11^{-1} W^T v`` of one
+  CG matvec (``_cg_matvec``, one or many columns), inside
+  ``lgt.pcg.matvec``; ``lgt.anchor.precond``: the Schur term of one
+  Nyström block (``_precond_block_fn``), inside ``lgt.nystrom.build``;
+  ``lgt.anchor.weights``: the right-hand side's anchor term and the
+  anchor weights (``_weights_ff``); ``lgt.anchor.mean``: the mean's
+  anchor term ``k(xq, X1) w1``;
 - ``lgt.gp.mean``, ``lgt.gp.var``: the dense posterior's mean and
   variance (``models/gp.py``); ``lgt.gp.var.solve``: the variance's
   triangular (or refined) solve; ``lgt.gp.crosscov``: the cross-covariance

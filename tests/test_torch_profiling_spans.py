@@ -3,11 +3,12 @@ and absent with no profiler running, every span of the module's list
 emitted and nested under ``torch.profiler``, and the same outputs to the bit
 with and without it.
 
-Three small paths cover every span: the gram-free heat regressor (N = 800,
-rank 64: ``representer_weights``, ``mean``, ``var`` at one block), the
-dense engine on the anchored heat IBVP (``mean`` and ``std``), and the same
-with panels of 64 rows, so that ``std``, taken twice, runs the blocked
-substitution twice and builds its panel inverses once."""
+Four small paths cover every span: the gram-free heat regressor (N = 800,
+rank 64: ``representer_weights``, ``mean``, ``var`` at one block), the same
+on the anchored heat IBVP (``anchor_weights`` too), the dense engine on the
+anchored heat IBVP (``mean`` and ``std``), and the same with panels of 64
+rows, so that ``std``, taken twice, runs the blocked substitution twice and
+builds its panel inverses once."""
 
 import numpy as np
 import pytest
@@ -26,11 +27,14 @@ HEAT_SPANS = {"lgt.nystrom.build", "lgt.nystrom.apply", "lgt.pcg", "lgt.pcg_bloc
 DENSE_SPANS = {"lgt.chol.factor", "lgt.chol.extend", "lgt.gp.mean", "lgt.gp.var", "lgt.gp.var.solve",
                "lgt.gp.crosscov"}
 PANEL_SPANS = DENSE_SPANS | {"lgt.chol.panel_inv", "lgt.chol.panel_solve"}
+ANCHOR_SPANS = HEAT_SPANS | {"lgt.anchor.setup", "lgt.anchor.schur", "lgt.anchor.precond", "lgt.anchor.weights",
+                             "lgt.anchor.mean"}
 #: Each span and the spans one of which must hold it.
 PARENTS = {"lgt.pcg.matvec": ("lgt.pcg", "lgt.pcg_block"), "lgt.nystrom.apply": ("lgt.pcg", "lgt.pcg_block"),
            "lgt.host_read": ("lgt.pcg", "lgt.pcg_block"), "lgt.gp.var.solve": ("lgt.gp.var",),
            "lgt.gp.crosscov": ("lgt.gp.mean", "lgt.gp.var"), "lgt.chol.panel_inv": ("lgt.gp.var.solve",),
-           "lgt.chol.panel_solve": ("lgt.gp.var.solve",)}
+           "lgt.chol.panel_solve": ("lgt.gp.var.solve",), "lgt.anchor.schur": ("lgt.pcg.matvec",),
+           "lgt.anchor.precond": ("lgt.nystrom.build",)}
 
 
 def _prior():
@@ -43,17 +47,33 @@ def _points(rng, n):
     return torch.as_tensor(np.stack([rng.uniform(0, 5, n), rng.uniform(-1, 1, n)], -1))
 
 
-def _heat():
+def _anchors():
+    """12 initial-condition and 2 x 6 boundary anchors with values from u*."""
+    t = torch.linspace(0, 5, 6, dtype=torch.float64)
+    xa = torch.cat([torch.stack([torch.zeros(12, dtype=torch.float64), torch.linspace(-1, 1, 12).double()], -1),
+                    torch.stack([t, torch.full((6,), -1.0, dtype=torch.float64)], -1),
+                    torch.stack([t, torch.full((6,), 1.0, dtype=torch.float64)], -1)])
+    return xa, torch.sin(np.pi * (xa[:, 1] + 1) / 2) * torch.exp(-0.1 * (np.pi / 2) ** 2 * xa[:, 0])
+
+
+def _heat(anchored=False):
     """``(outputs, host reads per lgt.pcg expected)`` of the gram-free path."""
     rng = np.random.default_rng(5)
     X, xq = _points(rng, 800), _points(rng, 64)
     Y = torch.as_tensor(rng.standard_normal(800))
     prior, H = _prior()
+    xa, ya = _anchors() if anchored else (None, None)
     reg = lgt.IterativeGPRegressor(prior, X, Y, L=H, noise_variance=1e-2, tol=1e-6, precond_rank=64, mode="f64",
-                                   device="cpu")
+                                   device="cpu", anchor_X=xa, anchor_Y=ya, anchor_noise=1e-5)
     w = reg.representer_weights
     out = {"weights": w, "mean": reg.mean(xq), "var": reg.var(xq, block_size=64)}
+    if anchored:
+        out["anchor_weights"] = reg.anchor_weights
     return out, [reg.solve_info[0] + 1]
+
+
+def _heat_anchored():
+    return _heat(anchored=True)
 
 
 def _dense_posterior():
@@ -87,7 +107,8 @@ def _dense_panels():
         chol_ops.PANEL_ROWS = saved
 
 
-PATHS = {"heat": (_heat, HEAT_SPANS), "dense": (_dense, DENSE_SPANS), "dense_panels": (_dense_panels, PANEL_SPANS)}
+PATHS = {"heat": (_heat, HEAT_SPANS), "heat_anchored": (_heat_anchored, ANCHOR_SPANS), "dense": (_dense, DENSE_SPANS),
+         "dense_panels": (_dense_panels, PANEL_SPANS)}
 
 
 def _profiled(fn):
@@ -136,6 +157,22 @@ def test_spans_emitted_and_nested(path, runs):
         parents = PARENTS.get(s[0])
         if parents:
             assert any(p[0] in parents and _inside(s, p) for p in spans), s
+
+
+@pytest.mark.parametrize("path", ["heat", "heat_anchored"])
+def test_anchor_spans_per_matvec_and_regressor(path, runs):
+    """With anchors one ``lgt.anchor.schur`` in each ``lgt.pcg.matvec`` (of
+    the solve and of ``var``'s blocked CG) and one ``lgt.anchor.setup`` for
+    the one regressor; without anchors no ``lgt.anchor.*`` span."""
+    _, spans, _, _ = runs[path]
+    matvecs = [s for s in spans if s[0] == "lgt.pcg.matvec"]
+    per_matvec = [sum(1 for r in spans if r[0] == "lgt.anchor.schur" and _inside(r, m)) for m in matvecs]
+    setups = sum(1 for s in spans if s[0] == "lgt.anchor.setup")
+    if path == "heat":
+        assert not [s for s in spans if s[0].startswith("lgt.anchor.")]
+    else:
+        assert matvecs and per_matvec == [1] * len(matvecs) and setups == 1
+        assert sum(1 for s in spans if s[0] == "lgt.anchor.schur") == len(matvecs)
 
 
 def test_host_reads_per_solve(runs):
