@@ -26,10 +26,19 @@ Phases, each printed as it finishes:
               product) at 3000 x 4000 unsorted points with the same r, also
               against dense K2 on the same inputs.  ff is held row by row to
               the f64 product rounded, and its ff pair (hi, lo) to the f64
-              product within 1e-3 of that rounding.
+              product within 1e-3 of that rounding.  K2's symmetric route
+              (``gram_matvec_sym``, the CG's (H k H*)(X, X) v) at n = 100
+              (below one tile), 1000 (ragged) and 1536 with the same r, held
+              to ``gram_matvec`` on (X, X) with the same bounds, bit for bit
+              from call to call, r > 4 handed to the multi-column route; then
+              at N = 1e5 and 99,997 in f64 (and ff at 1e5) held to
+              ``gram_matvec`` and to 256 sampled float64 rows as the scale
+              phase holds K2, timed beside ``gram_matvec`` (CUDA events).
 4. timing   - each kernel beside its plain version at the main paths' shapes:
               K2 at N x N with r in {1, 4, 64, 256} and (cross kernel)
-              nq x N with r = 1, K1 at N x rank and rank x rank; the banded
+              nq x N with r = 1, K2's symmetric route at N x N with r = 1
+              (beside the plain version's N x N result, its bound from
+              N (N + 1) / 2 pairs), K1 at N x rank and rank x rank; the banded
               matvec at N x N, r in {1, 4, 256}, on the Wendland data,
               beside dense K2 on the same spec at r = 1, with the band
               fraction.  The log (not the kernels line) also gives 64 x the
@@ -343,6 +352,7 @@ KERNELS = {
     "gram": ("linpde_gp_tpu/ops/pallas_gram.py:277", "K1", "linpde_gp_tpu_torch/csrc/gram.cuh"),
     "gram_matvec": ("linpde_gp_tpu/ops/pallas_gram.py:393", "K2", "linpde_gp_tpu_torch/csrc/gram.cuh"),
     "gram_matvec_wide": ("linpde_gp_tpu/ops/pallas_gram.py:393", "K2, r > 4", "linpde_gp_tpu_torch/csrc/gram.cuh"),
+    "gram_matvec_sym": ("linpde_gp_tpu/ops/pallas_gram.py:393", "K2, symmetric", "linpde_gp_tpu_torch/csrc/gram.cuh"),
     "banded_matvec": (
         "linpde_gp_tpu/ops/pallas_gram.py:664, linpde_gp_tpu/ops/pallas_gram.py:728",
         "K3+K4",
@@ -709,12 +719,12 @@ def phase_build():
         spills += [u.get("spill_stores", 0) for u in usage.values()]
         # Registers (spill stores) per mode: the narrow route's instantiations
         # per RC, the multi-column route's per RW.
-        for kernel, what in (("gram_matvec_kernel", "RC = 1, 2, 4"), ("banded_matvec_kernel", "RC = 1, 2, 4"),
-                             ("gram_matmat_kernel", "RW = 64, 128, 256"),
+        for kernel, what in (("gram_matvec_kernel", "RC = 1, 2, 4"), ("sym_gram_matvec_kernel", "RC = 1, 2, 4"),
+                             ("banded_matvec_kernel", "RC = 1, 2, 4"), ("gram_matmat_kernel", "RW = 64, 128, 256"),
                              ("banded_matmat_kernel", "RW = 64, 128, 256")):
             per = {}
             for name, u in usage.items():
-                m = re.search(kernel + r"<[^,]+, lgt::(\w+(?:<\w+>)?), (?:\(int\))?(\d+)>", name)
+                m = re.search(r"\b" + kernel + r"<[^,]+, lgt::(\w+(?:<\w+>)?), (?:\(int\))?(\d+)>", name)
                 if m:
                     mode = {"PlainArith<float>": "plain", "PlainArith<double>": "f64", "FFArith": "ff"}[m.group(1)]
                     per.setdefault(mode, []).append(
@@ -806,7 +816,126 @@ def phase_kernels(specs, k0, device="cuda"):
             wide = _cuda.launches["gram_matvec_wide"] - wide0
             want = 0 if r in (1, 4) else 3  # one launch per mode on the multi-column route for r > 4
             check(wide == want, f"K2 {name} r={r}: {wide} launches of the multi-column route, {want} expected")
+    check_k2_sym_small(specs["obs"], dev)
     log(f"kernel launches in this phase: {dict(_cuda.launches)}")
+    check_k2_sym()
+
+
+def check_k2_sym_small(spec, dev):
+    """K2's symmetric route against ``gram_matvec`` on (X, X) in each mode,
+    at n below one tile, ragged and whole tiles, with the bounds of
+    :func:`phase_kernels`' K2 checks (ff: row by row against the f64
+    product of its float32 points); two calls bit-identical; r > 4 on the
+    multi-column route, equal to ``gram_matvec``'s."""
+    import torch
+
+    from linpde_gp_tpu_torch.ops import _cuda
+    from linpde_gp_tpu_torch.ops.gram import gram_matvec, gram_matvec_plain, gram_matvec_sym, gram_plain
+
+    rng = np.random.default_rng(11)
+    eps32 = torch.finfo(torch.float32).eps
+    for n in (100, 1000, 1536):
+        Xnp = np.stack([rng.uniform(0.0, 5.0, n), rng.uniform(-1.0, 1.0, n)], -1)
+        X = {m: torch.tensor(Xnp, dtype=torch.float64 if m == "f64" else torch.float32, device=dev)
+             for m in ("plain", "ff", "f64")}
+        x32 = X["ff"].double()
+        K32 = spec[0] * gram_plain(spec[1], x32, x32, "f64")
+        for r in R_CHECK:
+            v64 = torch.tensor(rng.standard_normal((n, r)), dtype=torch.float64, device=dev)
+            oracle = gram_matvec_plain(spec, x32, x32, v64.float().double(), "f64")
+            row_absum = K32.abs() @ v64.float().double().abs()
+            for mode in ("plain", "ff", "f64"):
+                v = v64 if mode == "f64" else v64.float()
+                sym0, wide0 = _cuda.launches["gram_matvec_sym"], _cuda.launches["gram_matvec_wide"]
+                out = gram_matvec_sym(spec, X[mode], v, mode)
+                again = gram_matvec_sym(spec, X[mode], v, mode)
+                ref = gram_matvec(spec, X[mode], X[mode], v, mode)
+                sync()
+                tag = f"K2 sym n={n} r={r} {mode}"
+                same = all(torch.equal(a, b) for a, b in zip(out, again)) if mode == "ff" else torch.equal(out, again)
+                check(same, f"{tag}: two calls bit-identical")
+                sym = _cuda.launches["gram_matvec_sym"] - sym0
+                wide = _cuda.launches["gram_matvec_wide"] - wide0
+                want = (2, 0) if r <= _cuda.NARROW_MAX_R else (0, 3)
+                check((sym, wide) == want, f"{tag}: {sym} symmetric and {wide} multi-column launches, {want} expected")
+                if r > _cuda.NARROW_MAX_R:
+                    same = all(torch.equal(a, b) for a, b in zip(out, ref)) if mode == "ff" else torch.equal(out, ref)
+                    check(same, f"{tag}: the multi-column route's result, bit for bit")
+                    continue
+                if mode == "ff":
+                    pair, out, ref = out, out[0], ref[0]
+                sc = ref.abs().max().item()
+                err = (out.double() - ref.double()).abs().max().item()
+                if mode == "f64":
+                    check(err <= 1e-12 * sc, f"{tag} vs gram_matvec: {err / sc:.3e} rel <= 1e-12")
+                elif mode == "plain":
+                    check(err <= 1e-5 * sc, f"{tag} vs gram_matvec: {err / sc:.3e} rel <= 1e-5")
+                else:
+                    e_row = row_excess(out, oracle, row_absum, eps32)
+                    check(e_row <= ROW_BOUND, f"{tag} is the f64 product rounded, row by row: excess {e_row:.3g} "
+                          f"eps sum_j|k_ij v_j| <= {ROW_BOUND:g} (vs gram_matvec: {err / sc:.3e})")
+                    e_pair = pair_excess(pair, oracle, row_absum, eps32)
+                    check(e_pair <= ROW_BOUND, f"{tag} pair hi + lo vs the f64 product: {e_pair:.3g} eps "
+                          f"sum_j|k_ij v_j| <= {ROW_BOUND:g}")
+
+
+def check_k2_sym(n=100_000, rows=256, ragged=99_997) -> dict:
+    """K2's symmetric route at the main path's size, r = 1, on the heat
+    benchmark's points: f64 at ``n`` and ``ragged`` points and ff at ``n``,
+    each held at ``rows`` sampled rows to the float64 product of the plain
+    version's f64 Gram rows (f64 within 1e-11 of sum_j |k_ij v_j|, ff's
+    pair within ``ROW_BOUND`` of the f32 rounding scale, as
+    :func:`check_k2_sampled_rows`) and on every row to ``gram_matvec``
+    (within 1e-11 of the sampled rows' largest sum_j |k_ij v_j|); two calls
+    bit-identical; each timed beside ``gram_matvec`` (CUDA events, mean of
+    3 after one untimed call)."""
+    import torch
+
+    from linpde_gp_tpu_torch.ops import _cuda
+    from linpde_gp_tpu_torch.ops.gram import gram_matvec, gram_matvec_sym, gram_plain
+
+    spec = heat_specs()["obs"]
+    X, _, _ = bench_data(n, 0)
+    rng = np.random.default_rng(4)
+    v = torch.tensor(rng.standard_normal(n).astype(np.float32), device="cuda")
+    Xd = torch.tensor(X, device="cuda")
+    out = {}
+    for mode, m in (("f64", n), ("f64", ragged), ("ff", n)):
+        dt = torch.float64 if mode == "f64" else torch.float32
+        Xm, vm = Xd[:m].to(dt), v[:m].to(dt)
+        sel = torch.as_tensor(rng.choice(m, rows, replace=False), device="cuda")
+        K = spec[0] * gram_plain(spec[1], Xm[sel].double(), Xm.double(), "f64")
+        oracle, row_absum = K @ vm.double(), K.abs() @ vm.double().abs()
+        del K
+        gram_matvec_sym(spec, Xm, vm, mode), gram_matvec(spec, Xm, Xm, vm, mode)
+        sym_ms, res = timed(lambda: gram_matvec_sym(spec, Xm, vm, mode), reps=3)
+        again = gram_matvec_sym(spec, Xm, vm, mode)
+        two_ms, ref = timed(lambda: gram_matvec(spec, Xm, Xm, vm, mode), reps=3)
+        tag = f"K2 sym {mode} at {m}^2, r = 1"
+        if mode == "ff":
+            same = torch.equal(res[0], again[0]) and torch.equal(res[1], again[1])
+            e_rows = pair_excess((res[0][sel], res[1][sel]), oracle, row_absum, float(np.finfo(np.float32).eps))
+            e_all = ((res[0].double() + res[1].double()) - (ref[0].double() + ref[1].double())).abs().max().item()
+            e_all /= float(np.finfo(np.float32).eps) * row_absum.max().item()
+            check(e_rows <= ROW_BOUND, f"{tag} on {rows} sampled rows: the f64 product within {e_rows:.3g} <= "
+                  f"{ROW_BOUND:g} eps32 sum_j |k_ij v_j|")
+            check(e_all <= ROW_BOUND, f"{tag} vs gram_matvec on every row: {e_all:.3g} <= {ROW_BOUND:g} eps32 "
+                  "of the sampled rows' largest sum_j |k_ij v_j|")
+        else:
+            same = torch.equal(res, again)
+            e_rows = ((res[sel] - oracle).abs() / row_absum).max().item()
+            e_all = (res - ref).abs().max().item() / row_absum.max().item()
+            check(e_rows <= 1e-11, f"{tag} on {rows} sampled rows: {e_rows:.3g} <= 1e-11 of sum_j |k_ij v_j|")
+            check(e_all <= 1e-11, f"{tag} vs gram_matvec on every row: {e_all:.3g} <= 1e-11 of the sampled rows' "
+                  "largest sum_j |k_ij v_j|")
+        check(same, f"{tag}: two calls bit-identical")
+        scratch_mb = max(b.numel() for _, b in _cuda._sym_scratch.values()) / 1e6
+        out[f"{mode}_{m}"] = dict(sym_ms=sym_ms, gram_matvec_ms=two_ms, ratio=sym_ms / two_ms, rows_err=e_rows,
+                                  all_err=e_all, scratch_mb=scratch_mb)
+        log(f"  {tag}: {sym_ms:.3f} ms against gram_matvec's {two_ms:.3f} ms ({sym_ms / two_ms:.3f}); "
+            f"scratch {scratch_mb:.1f} MB")
+        del res, again, ref
+    return out
 
 
 def phase_banded_kernels(wspecs, device="cuda"):
@@ -930,11 +1059,13 @@ def phase_timing(specs, n, nq, rank):
     """K1 and K2 vs their plain versions at the heat path's shapes, per mode:
     K2 at N x N with r = 1, 4 (the narrow route), 64 (the
     multi-column route at RW = 64, the anchored variance's block) and 256
-    (RW = 256, the heat variance's block), and on the cross kernel at nq x N
-    with r = 1."""
+    (RW = 256, the heat variance's block), its symmetric route at N x N with
+    r = 1 (the CG's matvec; bound by its N (N + 1) / 2 pairs, held to the
+    plain version's result of the N x N row), and on the cross kernel at
+    nq x N with r = 1."""
     import torch
 
-    from linpde_gp_tpu_torch.ops.gram import gram, gram_matvec, gram_matvec_plain, gram_plain
+    from linpde_gp_tpu_torch.ops.gram import gram, gram_matvec, gram_matvec_plain, gram_matvec_sym, gram_plain
     from linpde_gp_tpu_torch.ops.linalg.pcg import landmark_indices
 
     spec, cross = specs["obs"], specs["cross"]
@@ -973,12 +1104,16 @@ def phase_timing(specs, n, nq, rank):
         gram_matvec(spec, Zd[:256], Zd[:256], v[:256], mode)
         gram_matvec(spec, Zd[:256], Zd[:256], V[:256], mode)
         gram_matvec_plain(spec, Zd[:256], Zd[:256], v[:256], mode)
+        gram_matvec_sym(spec, Xd, v_main, mode)  # its tables and its scratch at N
         sync()
         size = 8 if mode == "f64" else 4
+        planes = 2 if mode == "ff" else 1
         bounds = {
             "gram_zz": kernel_bound(spec, mode, rank * rank, size * rank * (rank + 4), r=0),
             "gram_xz": kernel_bound(spec, mode, n * rank, size * n * (rank + 2) + size * rank * 2, r=0),
             "gram_matvec_xx": kernel_bound(spec, mode, n * n, matvec_bytes(mode, n, n, 2, 1), r=1),
+            # X and v read once, the result written once
+            "gram_matvec_sym_xx": kernel_bound(spec, mode, n * (n + 1) // 2, size * n * (2 + 2 * planes), r=1),
             "gram_matvec_xx_r4": kernel_bound(spec, mode, n * n, matvec_bytes(mode, n, n, 2, 4), r=4),
             "gram_matvec_xx_r64": kernel_bound(spec, mode, n * n, matvec_bytes(mode, n, n, 2, 64), r=64, wide=True),
             "gram_matvec_xx_r256": kernel_bound(spec, mode, n * n, matvec_bytes(mode, n, n, 2, 256), r=256, wide=True),
@@ -990,6 +1125,8 @@ def phase_timing(specs, n, nq, rank):
             ("gram_xz", lambda: gram(terms, Xd, Zd, mode), lambda: gram_plain(terms, Xd, Zd, mode), 3),
             ("gram_matvec_xx", lambda: gram_matvec(spec, Xd, Xd, v_main, mode),
              lambda: gram_matvec_plain(spec, Xd, Xd, v_main, mode), 3),
+            # the CG's matvec; its plain version is the row above's, on the same inputs
+            ("gram_matvec_sym_xx", lambda: gram_matvec_sym(spec, Xd, v_main, mode), None, 3),
             # the r <= 4 route at its widest: r = 256 on it took 64 such launches
             ("gram_matvec_xx_r4", lambda: gram_matvec(spec, Xd, Xd, V4_main, mode),
              lambda: gram_matvec_plain(spec, Xd, Xd, V4_main, mode), 2),
@@ -1004,9 +1141,16 @@ def phase_timing(specs, n, nq, rank):
              lambda: gram_matvec_plain(cross, Qd, Xd, v_main, mode), 3),
         ):
             ms, out = timed(fk, reps=reps)
-            pms, ref = timed(fp, reps=1)
+            if fp is None:
+                pms, ref = plain_xx
+            else:
+                pms, ref = timed(fp, reps=1)
+                if mode == "ff" and key.startswith("gram_matvec"):
+                    ref = ref[0]
             if mode == "ff" and key.startswith("gram_matvec"):  # ff pairs: compare their f32 roundings hi
-                out, ref = out[0], ref[0]
+                out = out[0]
+            if key == "gram_matvec_xx":
+                plain_xx = (pms, ref)
             err = (out.double() - ref.double()).abs().max().item()
             sc = ref.abs().max().item()
             del out, ref
@@ -1024,7 +1168,7 @@ def phase_timing(specs, n, nq, rank):
         log(f"  {mode:5s} K2 r=256: multi-column route {row['gram_matvec_xx_r256']['ms']:.3f} ms; the r <= 4 route "
             f"would take 64 launches of r=4: {64 * r4:.1f} ms (an estimate: 64 x the r=4 time)")
         rows[mode] = row
-        del Xd, Zd, Qd, v, v_main, V, V_main, V4_main, V64_main
+        del Xd, Zd, Qd, v, v_main, V, V_main, V4_main, V64_main, plain_xx
         torch.cuda.empty_cache()
     return rows
 
@@ -1282,9 +1426,12 @@ def run_main_path(specs, k0, mode, n, nq, rank, *, device="cuda", tol=1e-5, maxi
     from linpde_gp_tpu_torch.models.iterative import IterativeGPRegressor
     from linpde_gp_tpu_torch.ops.gram import gram_matvec_plain
 
+    from linpde_gp_tpu_torch.ops import _cuda
+
     X, Y, Xq = bench_data(n, nq)
     sigma_sq = float(noise_rel * k0["obs"])
     prior, H = heat_problem(device)
+    sym0 = _cuda.launches["gram_matvec_sym"]
     reg, w, mu, times = _solve_and_mean(lambda: IterativeGPRegressor(
         prior, torch.from_numpy(X), torch.from_numpy(Y), L=H,
         noise_variance=sigma_sq, tol=tol, maxiter=maxiter, precond_rank=rank, mode=mode, device=device,
@@ -1292,6 +1439,10 @@ def run_main_path(specs, k0, mode, n, nq, rank, *, device="cuda", tol=1e-5, maxi
     check(reg._obs_spec == specs["obs"] and reg._cross_spec == specs["cross"],
           f"heat[{mode}]: derived specs equal data/heat_bench_specs.json")
     check(reg._banded is None, f"heat[{mode}]: dense K2 route (no compact support)")
+    if torch.device(device).type == "cuda":
+        sym = _cuda.launches["gram_matvec_sym"] - sym0
+        check(sym == reg.solve_info[0], f"heat[{mode}]: the CG launched K2's symmetric route once an iteration "
+              f"({sym} launches, {reg.solve_info[0]} iterations)")
     res = _check_solution(
         reg, w, mu, Xq, mode, tol, sigma_sq,
         lambda X64, w64: gram_matvec_plain(reg._obs_spec, X64, X64, w64, "f64"), "heat",
@@ -3562,7 +3713,8 @@ def phase_parallel(specs, k0, n, nq, rank) -> dict:
         traceback.print_exc()
         failures.append(f"parallel[dryrun]: {type(exc).__name__}: {exc}")
     for name in KERNELS:
-        check(total[name] > 0, f"parallel paths launched {name} {total[name]} times")
+        if name != "gram_matvec_sym":  # the ranks' matvecs are cross forms, slab x X
+            check(total[name] > 0, f"parallel paths launched {name} {total[name]} times")
     dist.destroy_process_group()
     return total
 
@@ -4050,6 +4202,10 @@ def main(argv=None) -> int:
             key, shape = "gram_matvec_xx", f"{n}x{n}, r=1"
             modes = {m: {"x_x": row.get(key), "x_x_r4": row.get("gram_matvec_xx_r4"), "q_x": row.get("gram_matvec_qx")}
                      for m, row in timing.items()}
+            ff_row = (timing.get("ff") or {}).get(key) or {}
+        elif name == "gram_matvec_sym":
+            key, shape = "gram_matvec_sym_xx", f"{n}x{n}, r=1, each unordered pair once"
+            modes = {m: {"x_x": row.get(key)} for m, row in timing.items()}
             ff_row = (timing.get("ff") or {}).get(key) or {}
         elif name == "gram_matvec_wide":
             key, shape = "gram_matvec_xx_r256", f"{n}x{n}, r=256"

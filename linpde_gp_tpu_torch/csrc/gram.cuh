@@ -13,7 +13,15 @@
 // splits the columns over gridDim.z when the rows alone give too few blocks
 // (matvec_reduce_kernel then sums the chunks in a fixed order); its ff body
 // takes an ff right-hand side (hi and lo planes), carries each product and
-// the row sum in ff and returns the ff pair.  For r > 4, gram_matmat_kernel
+// the row sum in ff and returns the ff pair.  On a Gram of a point set with
+// itself (the CG's (H k H*)(X, X) p; ops/_cuda.py::gram_matvec_sym), the
+// narrow route is sym_gram_matvec_kernel (gram_eval.cuh::sym_walk), which
+// replaces gram_matvec_kernel there: it evaluates each unordered pair once,
+// not twice, over equal chunks of the upper triangle's tile pairs on a
+// persistent grid, each pair's value added to both of its rows, and
+// sym_matvec_reduce_kernel sums the row and column partials from fixed slots
+// of a caller's scratch in a fixed order (no atomics: the same bits from
+// call to call).  For r > 4, gram_matmat_kernel
 // (gram_eval.cuh::matmat_rows) evaluates each pair once per block of RW >= 64
 // columns into shared memory and multiplies the tile by V's float64 panel on
 // the FP64 tensor cores, as the TPU body multiplies a tile by its panel; its
@@ -22,10 +30,12 @@
 //
 // What bounds them on the H100: arithmetic (gram_eval.cuh gives the counts
 // and what the narrow route's design does about them).  K2 reads O(n0 + n1 r)
-// bytes and evaluates n0 n1 pairs, so at N = 1e5 it is compute-bound by a
-// factor of thousands over bandwidth.  K1 writes n0 n1 values, 4 or 8 bytes
-// against ~35-370 instructions per entry: compute-bound.  K1 runs one thread
-// per output entry.
+// bytes and evaluates n0 n1 pairs (n (n + 1) / 2 on the symmetric route,
+// which writes and reads ~n^2 / (2 B) partials besides: 159 MB at N = 1e5,
+// f64, r = 1; 15.9 against 30.6 ms on the H100), so at N = 1e5 it is
+// compute-bound by a factor of thousands over bandwidth.  K1 writes n0 n1
+// values, 4 or 8 bytes against ~35-370 instructions per entry:
+// compute-bound.  K1 runs one thread per output entry.
 #pragma once
 
 #include "gram_eval.cuh"
@@ -70,6 +80,17 @@ __global__ void __launch_bounds__(kNarrowThreads)
   const size_t plane = static_cast<size_t>(blockIdx.z) * n0 * r;
   matvec_rows<S, A, RC>(s, x0t, x1t, v, v_lo, out + plane, out_lo == nullptr ? nullptr : out_lo + plane, n0, n1, r,
                         blockIdx.x * kNarrowThreads * A::kRows, j_begin, j_end);
+}
+
+// The symmetric narrow route (gram_eval.cuh::sym_walk): a persistent grid,
+// one chunk of the upper triangle's tile pairs per block.
+template <class S, class A, int RC>
+__global__ void __launch_bounds__(kNarrowThreads)
+    sym_gram_matvec_kernel(const __grid_constant__ SpecValues s, const typename A::Real* __restrict__ xt,
+                           const typename A::Real* __restrict__ v, const typename A::Real* __restrict__ v_lo,
+                           typename A::Real* __restrict__ part, typename A::Real* __restrict__ part_lo,
+                           const int4* __restrict__ chunks, int n, int r, int nb, size_t row_slots_at) {
+  sym_walk<S, A, RC>(s, xt, v, v_lo, part, part_lo, chunks, n, r, nb, row_slots_at);
 }
 
 // The multi-column route: kMatmatRows rows per block, RW columns from
@@ -131,6 +152,73 @@ cudaError_t launch_gram_matmat_rw(const SpecValues& s, const void* x0t, const vo
                                                      static_cast<const double*>(v), static_cast<T*>(out),
                                                      static_cast<T*>(out_lo), n0, n1, r);
   return cudaGetLastError();
+}
+
+// The symmetric route at RC columns: the walk over `blocks` chunks of the
+// `pairs` tile pairs, then the second pass.  scratch (scratch_lo in mode ff):
+// (pairs + blocks + nb - 1) tiles of B rows and r columns.
+template <class S, class A, int RC>
+cudaError_t launch_sym_rc(const SpecValues& s, const void* xt, const void* v, const void* v_lo, void* out,
+                          void* out_lo, int n, int r, const int* chunks, const int* rows, int blocks, int pairs,
+                          void* scratch, void* scratch_lo, cudaStream_t stream) {
+  using T = typename A::Real;
+  const auto kernel = sym_gram_matvec_kernel<S, A, RC>;
+  constexpr size_t smem = SymSmem<S, A, RC>::bytes;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  constexpr int tile = SymSmem<S, A, RC>::B;
+  const int nb = (n + tile - 1) / tile;
+  const size_t row_slots_at = static_cast<size_t>(pairs) * tile * r;
+  T* part = static_cast<T*>(scratch);
+  T* part_lo = static_cast<T*>(scratch_lo);
+  kernel<<<blocks, kNarrowThreads, smem, stream>>>(s, static_cast<const T*>(xt), static_cast<const T*>(v),
+                                                  static_cast<const T*>(v_lo), part, part_lo,
+                                                  reinterpret_cast<const int4*>(chunks), n, r, nb, row_slots_at);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t m = static_cast<size_t>(n) * r;
+  sym_matvec_reduce_kernel<A><<<static_cast<unsigned>((m + 255) / 256), 256, 0, stream>>>(
+      part, part_lo, reinterpret_cast<const int2*>(rows), static_cast<T*>(out), static_cast<T*>(out_lo), n, r, tile,
+      nb, row_slots_at);
+  return cudaGetLastError();
+}
+
+// Blocks of the symmetric route at RC columns that one SM holds at once (0
+// on an error): the persistent grid is this times the SMs.
+template <class S, class A, int RC>
+int sym_blocks_per_sm_rc() {
+  const auto kernel = sym_gram_matvec_kernel<S, A, RC>;
+  constexpr size_t smem = SymSmem<S, A, RC>::bytes;
+  int blocks = 0;
+  if (allow_smem(kernel, smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kNarrowThreads, smem) != cudaSuccess) {
+    return 0;
+  }
+  return blocks;
+}
+
+// RC: the narrowest of 1, 2, 4 that holds r <= 4.
+template <class S, class A>
+cudaError_t launch_gram_matvec_sym(const SpecValues& s, const void* xt, const void* v, const void* v_lo, void* out,
+                                   void* out_lo, int n, int r, const int* chunks, const int* rows, int blocks,
+                                   int pairs, void* scratch, void* scratch_lo, cudaStream_t stream) {
+  if (r == 1) {
+    return launch_sym_rc<S, A, 1>(s, xt, v, v_lo, out, out_lo, n, r, chunks, rows, blocks, pairs, scratch, scratch_lo,
+                                  stream);
+  }
+  if (r == 2) {
+    return launch_sym_rc<S, A, 2>(s, xt, v, v_lo, out, out_lo, n, r, chunks, rows, blocks, pairs, scratch, scratch_lo,
+                                  stream);
+  }
+  return launch_sym_rc<S, A, 4>(s, xt, v, v_lo, out, out_lo, n, r, chunks, rows, blocks, pairs, scratch, scratch_lo,
+                                stream);
+}
+
+template <class S, class A>
+int sym_blocks_per_sm(int r) {
+  if (r == 1) return sym_blocks_per_sm_rc<S, A, 1>();
+  if (r == 2) return sym_blocks_per_sm_rc<S, A, 2>();
+  return sym_blocks_per_sm_rc<S, A, 4>();
 }
 
 // wide = 0: the narrow route, RC the narrowest of 1, 2, 4 that holds r (r > 4

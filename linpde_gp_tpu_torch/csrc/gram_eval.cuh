@@ -1,7 +1,8 @@
 // Pair evaluation of collapsed sum-of-products specs, compiled per spec
 // structure, and the row walks of the Gram matvec (matvec_rows for r <= 4
-// right-hand-side columns, matmat_rows above), shared by the kernels of
-// gram.cuh (K1, K2) and banded.cuh (the banded matvec).
+// right-hand-side columns, matmat_rows above, sym_walk for r <= 4 on a Gram
+// of a point set with itself), shared by the kernels of gram.cuh (K1, K2)
+// and banded.cuh (the banded matvec).
 //
 // A spec is the collapsed groups of ops/gram.py::_collapse_terms: per pair
 // and input dimension a difference d, per distinct (dim, kind, scale) a
@@ -442,6 +443,283 @@ __global__ void matvec_reduce_kernel(const typename A::Real* __restrict__ part,
   if (e >= m) return;
   typename A::Acc acc = A::load(part, part_lo, e);
   for (int z = 1; z < splits; ++z) A::combine(acc, A::load(part, part_lo, z * m + e));
+  A::store(out, out_lo, e, acc);
+}
+
+// -- the narrow route on a symmetric Gram: each tile pair once ------------------------
+
+// K(X, X) @ V for r <= 4 (the CG's matvec (H k H*)(X, X) p), where
+// matvec_rows evaluates every unordered pair twice, once as (i, j) and once
+// as (j, i).  Rows and columns are cut into the same tiles of B = the narrow
+// route's rows per block; the walk visits each tile pair (I, J), J >= I, of
+// the upper triangle once.  A pair g = k(x_i, x_j) of an off-diagonal tile
+// adds g v_j to row i, in registers as matvec_rows does, and g v_i to row j:
+// each thread forms its rows' share of column j in registers, stashes it in
+// shared memory, and its warp sums the stash every kSymStash values (lanes L
+// and L + 16 each add 16 of the warp's 32 shares, then one shuffle); the
+// four warps' column sums meet once per tile.  A diagonal tile counts each
+// pair once: row i takes the columns j >= i, column j the rows i < j.
+//
+// What bounds it: as matvec_rows, the pair evaluation's FP64 (f64) or FP32
+// issue, over n (n + 1) / 2 pairs (whole diagonal tiles: + n B / 2) instead
+// of n^2.  A column share costs one more product-sum a pair and, a column
+// and thread, one shared store and about two instructions of the warp's sum
+// (~4 % of the f64 pair's ~66 instructions).
+//
+// Schedule (ops/_cuda.py::sym_schedule): the tile pairs in row-major order
+// (I, then J = I..nb-1) are cut into one chunk per block of equal numbers of
+// pairs (differing by at most one), and a persistent grid of as many blocks
+// as fit on the card at once walks them: row block 0 owns nb tile pairs and
+// the last one, so whole row blocks per block would leave most of the card
+// idle at the end.  A chunk's table entry gives its first (I, J), its pair
+// count and the index of its first pair.
+//
+// Deterministic, no atomics: each tile's column sums go to the pair's own
+// slot of the scratch (pair p of (I, J): slot p), and each run of one row
+// block inside one chunk writes its row sums to slot pairs + c + I (chunk c;
+// c + I differs between runs, since both grow along the walk).
+// sym_matvec_reduce_kernel then sums, for each output row j of tile J, the
+// row runs of J in chunk order and the column sums of the tiles (I, J), I =
+// 0..J, in order.  The scratch, (pairs + chunks + nb - 1) B r values (and
+// its lo plane in mode ff; 159 MB at N = 1e5, r = 1, f64), is the wrapper's
+// (ops/_cuda.py::_sym_scratch: one buffer a stream, kept and grown, in a
+// memory pool of its own, so that no matvec of a CG, nor the next
+// regressor's, allocates device memory or splits another block; it grows
+// as n^2, so the wrapper refuses one past half the free memory, and
+// release_sym_scratch() hands it back between solves).
+constexpr int kNarrowWarps = kNarrowThreads / 32;
+constexpr int kSymStash = 16;  // column shares a lane stashes per round: kSymStash / RC columns
+constexpr int kSymLd = 33;     // stash row stride (doubles or floats): conflict-free rows and columns
+
+constexpr size_t align16(size_t x) { return (x + 15) / 16 * 16; }
+
+// Dynamic shared memory of the symmetric walk: X's coordinates (nd, B) and
+// V's rows (B, RC) of the staged column tile (and the lo plane in mode ff),
+// each warp's stash (kSymStash, kSymLd) and its column sums of the tile (B RC).
+template <class S, class A, int RC>
+struct SymSmem {
+  using T = typename A::Real;
+  using Acc = typename A::Acc;
+  static constexpr int B = kNarrowThreads * A::kRows;
+  static constexpr bool kLo = sizeof(Acc) != sizeof(T);
+  static constexpr size_t sx = 0;
+  static constexpr size_t sv = align16(sx + sizeof(T) * S::nd * B);
+  static constexpr size_t svl = align16(sv + sizeof(T) * B * RC);
+  static constexpr size_t stash = align16(svl + (kLo ? sizeof(T) * B * RC : 0));
+  static constexpr size_t wcol = align16(stash + sizeof(Acc) * kNarrowWarps * kSymStash * kSymLd);
+  static constexpr size_t bytes = align16(wcol + sizeof(Acc) * kNarrowWarps * B * RC);
+};
+
+__device__ __forceinline__ float shfl_down(float x, int d) { return __shfl_down_sync(0xffffffffu, x, d); }
+__device__ __forceinline__ double shfl_down(double x, int d) { return __shfl_down_sync(0xffffffffu, x, d); }
+__device__ __forceinline__ ff32 shfl_down(ff32 x, int d) { return {shfl_down(x.hi, d), shfl_down(x.lo, d)}; }
+
+// One tile pair: row block I (this thread's rows a, vi, vil; their running
+// sums tot) against column tile J from j0.  Adds the rows' sums over the
+// tile to tot and writes the tile's column sums to slot `slot`.  Every
+// thread of the block calls it (it synchronizes the block).
+template <class S, class A, int RC, bool kDiag>
+__device__ __forceinline__ void sym_tile(const SpecValues& s, const typename A::Real (&a)[A::kRows][S::nd],
+                                         const typename A::Real (&vi)[A::kRows][RC],
+                                         const typename A::Real (&vil)[A::kRows][RC],
+                                         typename A::Acc (&tot)[A::kRows][RC], const typename A::Real* __restrict__ xt,
+                                         const typename A::Real* __restrict__ v,
+                                         const typename A::Real* __restrict__ v_lo, typename A::Real* __restrict__ col,
+                                         typename A::Real* __restrict__ col_lo, int n, int r, int j0, size_t slot,
+                                         unsigned char* smem) {
+  using T = typename A::Real;
+  using Acc = typename A::Acc;
+  using Val = typename A::Val;
+  using L = SymSmem<S, A, RC>;
+  constexpr int ND = S::nd, RPT = A::kRows, B = L::B, SUB = kSymStash / RC;
+  static_assert(kSymStash % RC == 0 && B % SUB == 0, "whole stash rounds a tile");
+  T* sx = reinterpret_cast<T*>(smem + L::sx);    // [ND][B]
+  T* sv = reinterpret_cast<T*>(smem + L::sv);    // [B][RC]
+  T* svl = reinterpret_cast<T*>(smem + L::svl);  // [B][RC], mode ff
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  Acc* stash = reinterpret_cast<Acc*>(smem + L::stash) + warp * kSymStash * kSymLd;  // [o][lane]
+  Acc* wcol = reinterpret_cast<Acc*>(smem + L::wcol);                                 // [warp][B RC]
+
+  __syncthreads();  // the previous tile's columns and column sums are consumed
+  for (int k = tid; k < B; k += kNarrowThreads) {
+    const int j = j0 + k;
+    const bool ok = j < n;
+#pragma unroll
+    for (int dd = 0; dd < ND; ++dd) sx[dd * B + k] = ok ? xt[static_cast<size_t>(dd) * n + j] : T(0);
+#pragma unroll
+    for (int c = 0; c < RC; ++c) {
+      const bool okc = ok && c < r;
+      const size_t at = static_cast<size_t>(j) * r + c;
+      sv[k * RC + c] = okc ? v[at] : T(0);
+      if constexpr (L::kLo) svl[k * RC + c] = okc && v_lo != nullptr ? v_lo[at] : T(0);
+    }
+  }
+  __syncthreads();
+
+  Acc part[RPT][RC];
+#pragma unroll
+  for (int q = 0; q < RPT; ++q) {
+#pragma unroll
+    for (int c = 0; c < RC; ++c) part[q][c] = A::acc_zero();
+  }
+  for (int k0 = 0; k0 < B; k0 += SUB) {
+#pragma unroll(A::kUnroll)
+    for (int u = 0; u < SUB; ++u) {
+      const int kk = k0 + u;
+      T b[ND], w[RC], wl[RC];
+#pragma unroll
+      for (int dd = 0; dd < ND; ++dd) b[dd] = sx[dd * B + kk];
+#pragma unroll
+      for (int c = 0; c < RC; ++c) {
+        w[c] = sv[kk * RC + c];
+        wl[c] = L::kLo ? svl[kk * RC + c] : T(0);
+      }
+      Acc share[RC];
+#pragma unroll
+      for (int c = 0; c < RC; ++c) share[c] = A::acc_zero();
+#pragma unroll
+      for (int q = 0; q < RPT; ++q) {
+        const Val g = eval_pair<S, A>(s, a[q], b);
+        Val g_row = g, g_col = g;
+        if constexpr (kDiag) {
+          const int li = q * kNarrowThreads + tid;
+          g_row = kk >= li ? g : Val{};
+          g_col = kk > li ? g : Val{};
+        }
+#pragma unroll
+        for (int c = 0; c < RC; ++c) {
+          A::accumulate(part[q][c], g_row, w[c], wl[c]);
+          A::accumulate(share[c], g_col, vi[q][c], vil[q][c]);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < RC; ++c) stash[(u * RC + c) * kSymLd + lane] = share[c];
+    }
+    __syncwarp();
+    // Output o of the round: lanes o and o + 16 each sum 16 lanes' shares.
+    const int o = lane & (kSymStash - 1), h = lane >> 4;
+    Acc x = stash[o * kSymLd + 16 * h];
+#pragma unroll
+    for (int m = 1; m < 16; ++m) A::combine(x, stash[o * kSymLd + 16 * h + m]);
+    const Acc y = shfl_down(x, 16);
+    if (lane < 16) {
+      A::combine(x, y);
+      wcol[warp * B * RC + k0 * RC + o] = x;
+    }
+    __syncwarp();  // the stash is read before the next round writes it
+  }
+#pragma unroll
+  for (int q = 0; q < RPT; ++q) {
+#pragma unroll
+    for (int c = 0; c < RC; ++c) A::combine(tot[q][c], part[q][c]);
+  }
+  __syncthreads();  // every warp's column sums of the tile are in place
+  for (int o = tid; o < B * RC; o += kNarrowThreads) {
+    Acc x = wcol[o];
+#pragma unroll
+    for (int w = 1; w < kNarrowWarps; ++w) A::combine(x, wcol[w * B * RC + o]);
+    const int c = o % RC;
+    if (c < r) A::store(col, col_lo, (slot * B + o / RC) * r + c, x);
+  }
+}
+
+// The rows of row block I: coordinates, V's entries (and lo plane), zeros past n.
+template <class S, class A, int RC>
+__device__ __forceinline__ void sym_rows(const typename A::Real* __restrict__ xt,
+                                         const typename A::Real* __restrict__ v,
+                                         const typename A::Real* __restrict__ v_lo, int n, int r, int I,
+                                         typename A::Real (&a)[A::kRows][S::nd], typename A::Real (&vi)[A::kRows][RC],
+                                         typename A::Real (&vil)[A::kRows][RC]) {
+  using T = typename A::Real;
+#pragma unroll
+  for (int q = 0; q < A::kRows; ++q) {
+    const int i = (I * A::kRows + q) * kNarrowThreads + threadIdx.x;
+    const bool ok = i < n;
+#pragma unroll
+    for (int dd = 0; dd < S::nd; ++dd) a[q][dd] = ok ? xt[static_cast<size_t>(dd) * n + i] : T(0);
+#pragma unroll
+    for (int c = 0; c < RC; ++c) {
+      const bool okc = ok && c < r;
+      vi[q][c] = okc ? v[static_cast<size_t>(i) * r + c] : T(0);
+      vil[q][c] = okc && v_lo != nullptr ? v_lo[static_cast<size_t>(i) * r + c] : T(0);
+    }
+  }
+}
+
+// The walk of one chunk (chunks[blockIdx.x] = first I, first J, pairs, first
+// pair's index) over the tile pairs of the upper triangle, nb tiles a side;
+// column sums to part from slot 0, row sums from row_slots_at values on.
+template <class S, class A, int RC>
+__device__ __forceinline__ void sym_walk(const SpecValues& s, const typename A::Real* __restrict__ xt,
+                                         const typename A::Real* __restrict__ v,
+                                         const typename A::Real* __restrict__ v_lo, typename A::Real* __restrict__ part,
+                                         typename A::Real* __restrict__ part_lo, const int4* __restrict__ chunks,
+                                         int n, int r, int nb, size_t row_slots_at) {
+  using T = typename A::Real;
+  using Acc = typename A::Acc;
+  constexpr int RPT = A::kRows, B = SymSmem<S, A, RC>::B;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int4 ch = chunks[blockIdx.x];
+  int I = ch.x, J = ch.y;
+  T a[RPT][S::nd], vi[RPT][RC], vil[RPT][RC];
+  sym_rows<S, A, RC>(xt, v, v_lo, n, r, I, a, vi, vil);
+  Acc tot[RPT][RC];
+#pragma unroll
+  for (int q = 0; q < RPT; ++q) {
+#pragma unroll
+    for (int c = 0; c < RC; ++c) tot[q][c] = A::acc_zero();
+  }
+  for (int k = 0; k < ch.z; ++k) {
+    const size_t slot = static_cast<size_t>(ch.w) + k;
+    if (J == I) {
+      sym_tile<S, A, RC, true>(s, a, vi, vil, tot, xt, v, v_lo, part, part_lo, n, r, J * B, slot, smem_raw);
+    } else {
+      sym_tile<S, A, RC, false>(s, a, vi, vil, tot, xt, v, v_lo, part, part_lo, n, r, J * B, slot, smem_raw);
+    }
+    const bool last = k + 1 == ch.z;
+    if (++J < nb && !last) continue;
+    // The end of a run of row block I: its row sums to slot c + I.
+    const size_t run = row_slots_at + (static_cast<size_t>(blockIdx.x) + I) * B * r;
+#pragma unroll
+    for (int q = 0; q < RPT; ++q) {
+      const int l = q * kNarrowThreads + threadIdx.x;
+#pragma unroll
+      for (int c = 0; c < RC; ++c) {
+        if (c < r) A::store(part, part_lo, run + static_cast<size_t>(l) * r + c, tot[q][c]);
+        tot[q][c] = A::acc_zero();
+      }
+    }
+    if (J == nb && !last) {
+      J = ++I;
+      sym_rows<S, A, RC>(xt, v, v_lo, n, r, I, a, vi, vil);
+    }
+  }
+}
+
+// The symmetric walk's second pass: out[j, c] = the row runs of j's tile J
+// (chunks rows[J].x..rows[J].y, in order), then the column sums of the
+// tiles (I, J), I = 0..J, in order; e = j r + c < n r.
+template <class A>
+__global__ void sym_matvec_reduce_kernel(const typename A::Real* __restrict__ part,
+                                         const typename A::Real* __restrict__ part_lo,
+                                         const int2* __restrict__ rows, typename A::Real* __restrict__ out,
+                                         typename A::Real* __restrict__ out_lo, int n, int r, int tile, int nb,
+                                         size_t row_slots_at) {
+  const size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= static_cast<size_t>(n) * r) return;
+  const int j = static_cast<int>(e / r), c = static_cast<int>(e % r), J = j / tile;
+  const size_t at = static_cast<size_t>(j - J * tile) * r + c, stride = static_cast<size_t>(tile) * r;
+  const int2 run = rows[J];
+  typename A::Acc acc = A::load(part, part_lo, row_slots_at + (static_cast<size_t>(run.x) + J) * stride + at);
+  for (int q = run.x + 1; q <= run.y; ++q) {
+    A::combine(acc, A::load(part, part_lo, row_slots_at + (static_cast<size_t>(q) + J) * stride + at));
+  }
+  size_t p = J;  // the pair index of (0, J); of (I + 1, J): p + nb - I - 1
+#pragma unroll 4
+  for (int I = 0; I <= J; ++I) {
+    A::combine(acc, A::load(part, part_lo, p * stride + at));
+    p += nb - I - 1;
+  }
   A::store(out, out_lo, e, acc);
 }
 

@@ -40,6 +40,21 @@ struct MatvecLaunch {
 };
 
 template <class A>
+struct SymLaunch {
+  static int run(const SpecValues* s, const void* xt, const void* v, const void* v_lo, void* out, void* out_lo, int n,
+                 int r, const int* chunks, const int* rows, int blocks, int pairs, void* scratch, void* scratch_lo,
+                 cudaStream_t st) {
+    return launch_gram_matvec_sym<Structure, A>(*s, xt, v, v_lo, out, out_lo, n, r, chunks, rows, blocks, pairs,
+                                                scratch, scratch_lo, st);
+  }
+};
+
+template <class A>
+struct SymBlocks {
+  static int run(int r) { return sym_blocks_per_sm<Structure, A>(r); }
+};
+
+template <class A>
 struct BandedLaunch {
   static int run(const SpecValues* s, const void* x0t, const void* x1t, const void* v, const void* v_lo, void* out,
                  void* out_lo, const int* win, int n0, int n1, int r, int tile, int wide, cudaStream_t st) {
@@ -77,6 +92,30 @@ int lgt_gram_matvec(const lgt::SpecValues* spec, int mode, const void* x0t, cons
   }
   return lgt::dispatch_mode<lgt::MatvecLaunch>(mode, spec, x0t, x1t, v, v_lo, out, out_lo, n0, n1, r, wide, splits,
                                                chunk, scratch, scratch_lo, static_cast<cudaStream_t>(stream));
+}
+
+// K(X, X) @ v on the symmetric narrow route, 1 <= r <= 4: points transposed,
+// (ndims, n); v, v_lo, out, out_lo as for lgt_gram_matvec.  chunks (blocks,
+// 4) and rows (ceil(n / B), 2) int32: the schedule of ops/_cuda.py::
+// sym_schedule over `pairs` tile pairs of B = lgt_narrow_rows(mode) points;
+// scratch (and scratch_lo in mode kFF): (pairs + blocks + ceil(n / B) - 1)
+// B r values.
+int lgt_gram_matvec_sym(const lgt::SpecValues* spec, int mode, const void* xt, const void* v, const void* v_lo,
+                        void* out, void* out_lo, int n, int r, const int* chunks, const int* rows, int blocks,
+                        int pairs, void* scratch, void* scratch_lo, void* stream) {
+  if ((v_lo != nullptr && mode != lgt::kFF) || ((mode == lgt::kFF) != (out_lo != nullptr)) || r < 1 || r > 4 ||
+      n < 1 || blocks < 1 || pairs < blocks || scratch == nullptr || ((mode == lgt::kFF) != (scratch_lo != nullptr))) {
+    return cudaErrorInvalidValue;
+  }
+  return lgt::dispatch_mode<lgt::SymLaunch>(mode, spec, xt, v, v_lo, out, out_lo, n, r, chunks, rows, blocks, pairs,
+                                            scratch, scratch_lo, static_cast<cudaStream_t>(stream));
+}
+
+// Blocks of the symmetric route that one SM holds at once, in a mode at r
+// columns (0 on an error).
+int lgt_sym_blocks_per_sm(int mode, int r) {
+  if (r < 1 || r > 4 || (mode != lgt::kPlain && mode != lgt::kFF && mode != lgt::kF64)) return 0;
+  return lgt::dispatch_mode<lgt::SymBlocks>(mode, r);
 }
 
 // Points sorted by dimension 0 and transposed, (ndims, n); v (n1, r) in the

@@ -2,10 +2,11 @@
 
 Port of the streaming path of ``linpde_gp_tpu/models/iterative.py``:
 representer weights by float-float preconditioned CG
-(``ops/linalg/pcg.pcg_ff``) whose every Gram matvec streams through K2
-(``ops/gram.gram_matvec``) without storing the Gram, preconditioned by
-the floored all-device Nyström build whose kernel blocks come from K1
-(``ops/gram.gram``).  The posterior mean is one cross-kernel K2 matvec.
+(``ops/linalg/pcg.pcg_ff``) whose every Gram matvec streams through K2's
+symmetric route (``ops/gram.gram_matvec_sym``) without storing the Gram,
+preconditioned by the floored all-device Nyström build whose kernel blocks
+come from K1 (``ops/gram.gram``).  The posterior mean is one cross-kernel
+K2 matvec.
 
 The regressor takes a prior and an optional linear operator ``L``, as the
 JAX package's does, and derives the observation kernel ``L k L*`` and the
@@ -57,7 +58,7 @@ import torch
 from ..config import mode_dtype, resolve_device, resolve_mode
 from ..ops.banded import compact_support_radius, make_banded_matvec
 from ..ops.ff import ff_split
-from ..ops.gram import gram, gram_matrix, gram_matvec, kernel_term_specs
+from ..ops.gram import gram, gram_matrix, gram_matvec, gram_matvec_sym, kernel_term_specs
 from ..ops.kron_ff import kron_linop
 from ..ops.linalg.chol import cho_solve, cholesky
 from ..ops.linalg.pcg import landmark_indices, nystrom_preconditioner_device, pcg_block_ff, pcg_ff
@@ -334,11 +335,11 @@ class IterativeGPRegressor:
         """Gram matvec of an ff pair (``(n,)`` or ``(n, r)`` planes) WITHOUT
         the noise shift (the CG applies sigma^2 itself, in float-float),
         routed as ``iterative.py:421-432`` of the JAX package: the grid
-        operator, the banded kernel, K2, or a kernel without a spec's dense
-        Gram.  Mode ff feeds both planes to the kernel and returns the
-        result's ff pair (the grid operator and the dense Gram: the split of
-        their float64 product); the other modes read the hi plane and return
-        one tensor."""
+        operator, the banded kernel, K2 on the symmetric Gram ``(L k L*)(X,
+        X)``, or a kernel without a spec's dense Gram.  Mode ff feeds both
+        planes to the kernel and returns the result's ff pair (the grid
+        operator and the dense Gram: the split of their float64 product); the
+        other modes read the hi plane and return one tensor."""
         op = self._gram_linop if self._gram_linop is not None else self._dense_obs_gram()
         if op is not None:
             if self.mode == "ff":
@@ -348,7 +349,7 @@ class IterativeGPRegressor:
             v_ff = v_ff[0]
         if self._banded is not None:
             return self._banded(v_ff)
-        return gram_matvec(self._obs_spec, self.X, self.X, v_ff, self.mode)
+        return gram_matvec_sym(self._obs_spec, self.X, v_ff, self.mode)
 
     def _cg_matvec(self, v_ff):
         """The CG operator without the noise shift: the Gram matvec, minus

@@ -19,7 +19,9 @@ engine is float64.  There is no other route and no fallback.
 :func:`gram_matrix` takes a kernel object and routes through :func:`gram`.  K2 takes one of two routes by the number r of
 right-hand-side columns (``csrc/gram.cuh``): a few output rows per thread
 for r <= 4, and for r > 4 a route that evaluates each pair once per block
-of 64 to 256 columns.
+of 64 to 256 columns.  :func:`gram_matvec_sym` is K2 on a Gram of a point
+set with itself, which the caller states by calling it: for r <= 4 it
+evaluates each unordered pair once.
 
 Modes (``config.py``): ``"plain"`` (float32), ``"ff"`` (float32
 float-float pairs, the JAX package's ``compensated=True``) and ``"f64"``
@@ -458,4 +460,27 @@ def gram_matvec(spec, X0, X1, v, mode=None):
             out = gram_matvec_plain(spec, X0, X1, v, mode)
     else:
         raise ValueError(f"no route for device {X0.device}")
+    return out
+
+
+def gram_matvec_sym(spec, X, v, mode=None):
+    """``scale * K(X, X) @ v`` for a ``(scale, terms)`` spec whose kernel is
+    symmetric, ``k(x, y) = k(y, x)`` (an observation kernel ``L k L*``);
+    ``v`` and the result as :func:`gram_matvec`.  CUDA tensors launch K2's
+    symmetric route for r <= 4, which evaluates each unordered pair once,
+    and its multi-column route above; the symmetric route keeps a scratch
+    of n^2 / (2 B) values a stream (``_cuda.release_sym_scratch``).  CPU
+    tensors take :func:`gram_matvec`'s route on ``(X, X)``."""
+    mode = resolve_mode(mode)
+    X = _as_points(X, mode)
+    if not X.is_cuda:
+        return gram_matvec(spec, X, X, v, mode)
+    from . import _cuda
+
+    _check_dims(spec[1], X, X)
+    scale, terms = spec
+    (v, v_lo), vector = _as_rhs(v, X, mode)
+    out = _cuda.gram_matvec_sym(_collapse_terms(tuple(terms)), X, v, mode, v_lo, scale=scale)
+    if vector:
+        out = (out[0][:, 0], out[1][:, 0]) if mode == "ff" else out[:, 0]
     return out
