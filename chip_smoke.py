@@ -3307,13 +3307,14 @@ PAR_TWO_RANK_N = 16384
 
 def parallel_spans() -> "Spans":
     """The distributed regressor's kernel calls, each kept (as
-    :func:`grid_spans`): K1 from its Nystrom build (``parallel/iterative.gram``)
-    and from ``gram_matrix`` (``var``'s ``kxX``), K2 from it: the mean's
-    calls whole, the CG's as ``None``."""
+    :func:`grid_spans`): K1 from its Nystrom build (the shared core's
+    ``models/iterative.gram``) and from ``gram_matrix`` (``var``'s
+    ``kxX``), K2 from it: the mean's calls whole, the CG's as ``None``."""
+    from linpde_gp_tpu_torch.models import iterative as iterative_module
     from linpde_gp_tpu_torch.ops import gram as gram_module
     from linpde_gp_tpu_torch.parallel import iterative as par_iterative
 
-    return Spans({"k1_blocks": (par_iterative, "gram"), "k1_gram_matrix": (gram_module, "gram"),
+    return Spans({"k1_blocks": (iterative_module, "gram"), "k1_gram_matrix": (gram_module, "gram"),
                   "k2_calls": (par_iterative, "gram_matvec")},
                  keep={"k1_blocks": _k1_sample, "k1_gram_matrix": _k1_sample, "k2_calls": _keep_mean_k2})
 

@@ -48,6 +48,8 @@ max var off float64's on an H100, where the float64 operator is exact and
 faster (PERF.md).  The
 Nyström build, the anchor blocks, the mean and ``var``'s ``kxX`` stay on
 K1 and K2 at the flattened grid points (C order, row ``t * n_x + x``).
+
+:class:`GramFreeCore` is the part the mesh regressor (``parallel/``) shares.
 """
 
 from __future__ import annotations
@@ -57,7 +59,7 @@ import torch
 
 from ..config import mode_dtype, resolve_device, resolve_mode
 from ..ops.banded import compact_support_radius, make_banded_matvec
-from ..ops.ff import ff_split
+from ..ops.ff import aux_mode, operand, read_back, state_dtype, to_carrier
 from ..ops.gram import gram, gram_matrix, gram_matvec, gram_matvec_sym, kernel_term_specs
 from ..ops.kron_ff import kron_linop
 from ..ops.linalg.chol import cho_solve, cholesky
@@ -70,7 +72,215 @@ from .functions.base import Zero
 from .gp import GaussianProcess
 
 
-class IterativeGPRegressor:
+class GramFreeCore:
+    """What a gram-free regressor does wherever its points live: the kernels,
+    the state, the residual's CG solve, the mean's and the variance's arithmetic.
+    A subclass calls :meth:`_setup_core` and supplies ``_cg_matvec``,
+    ``_preconditioner``, ``_cross_matvec``, ``_kx_rows`` and, if its CG rows
+    are not ``X``'s, ``_to_layout`` / ``_from_layout``; only the single-card
+    regressor builds ``_anchors``."""
+
+    @classmethod
+    def _kernels(cls, prior, L):
+        """``(k_obs, k_cross, mean_obs)``: ``L k L*``, ``k L*`` and ``L m``
+        of a scalar-output ``prior`` (``k``, ``k`` and ``m`` without ``L``)."""
+        if prior.output_shape != ():
+            raise ValueError(f"{cls.__name__} supports scalar outputs.")
+        k = prior.cov
+        if L is None:
+            return k, k, prior.mean
+        return (apply_operator_to_kernel(L, apply_operator_to_kernel(L, k, argnum=1), argnum=0),
+                apply_operator_to_kernel(L, k, argnum=1),
+                prior.mean if isinstance(prior.mean, Zero) else L(prior.mean))
+
+    def _setup_core(self, X, Y, noise_variance, tol, maxiter, precond_rank, mode, device):
+        """The mode, the device, ``X`` as ``(n, d)`` in the mode's dtype,
+        ``Y``, the CG's settings and the Nyström rank (``"auto"``: 0 below
+        1,024 observations, ``min(512, n // 4)`` above; at most ``n``)."""
+        self.mode = resolve_mode(mode)
+        self.device = resolve_device(device)
+        X = torch.as_tensor(X)
+        self.X = X.reshape(X.shape[0], -1).to(device=self.device, dtype=mode_dtype(self.mode)).contiguous()
+        self.Y = torch.as_tensor(Y).reshape(-1).to(device=self.device, dtype=self.X.dtype)
+        self.noise_variance, self.tol, self.maxiter = float(noise_variance), float(tol), int(maxiter)
+        n = self.X.shape[0]
+        if precond_rank == "auto":
+            precond_rank = min(512, n // 4) if n >= 1024 else 0
+        self.precond_rank = int(min(int(precond_rank), n))
+        self._precond = self._anchors = self._weights = self._anchor_weights = None
+        self._solve_info = self._var_info = None
+
+    @property
+    def _dtype(self) -> torch.dtype:
+        """The dtype of the solver's state past the points' precision (the
+        Nyström factors, the dense Gram, residuals, the variance's quadratic
+        form): float64 unless the mode is plain."""
+        return state_dtype(self.mode)
+
+    def _mean_at(self, f, X) -> torch.Tensor | None:
+        """The function ``f`` (a prior mean or ``L`` of it) at stored ``(n,
+        d)`` points ``X``, evaluated in float64 on the points as stored (the
+        points K1 and K2 see) and returned in :attr:`_dtype`; ``None`` for a
+        zero or absent mean."""
+        if f is None or isinstance(f, Zero):
+            return None
+        vals = f(X.double().reshape((-1,) + tuple(self.prior.input_shape)))
+        return vals.reshape(-1).to(self._dtype)
+
+    def _obs_block(self, x0, x1) -> torch.Tensor:
+        """Observation-kernel block through K1 (a kernel without a spec: its
+        dense Gram), in the mode's dtype."""
+        if self._obs_spec is None:
+            return gram_matrix(self._k_obs, x0, x1, self.mode)
+        scale, terms = self._obs_spec
+        out = gram(terms, x0, x1, self.mode)
+        return scale * out if scale != 1.0 else out
+
+    def _to_layout(self, v):
+        """A vector over ``X``'s rows as the CG's right-hand side."""
+        return v
+
+    def _from_layout(self, x):
+        """The CG's solution pair back over ``X``'s rows."""
+        return x
+
+    @property
+    def solve_info(self):
+        """``(iterations, relative_residual)`` of the most recent solve."""
+        return self._solve_info
+
+    @property
+    def var_info(self):
+        """``[(iterations, relative_residual), ...]`` of the last
+        :meth:`var` call's query blocks (the residual: its worst column)."""
+        return self._var_info
+
+    def _weights_ff(self):
+        """The solved weights as the CG's ff pair ``(hi, lo)`` over ``X``'s
+        rows; with anchors also the anchor weights (``iterative.py:515-529``).
+        The right-hand side is the residual ``Y - (L m)(X)`` (with anchors,
+        minus ``W A11^{-1} (Y1 - m(X1))``), formed in float64 (plain:
+        float32) and handed to the CG as an ff pair in mode ff."""
+        if self._weights is None:
+            a = self._anchors
+            resid = self.Y.to(self._dtype)
+            m_obs = self._mean_at(self._mean_obs, self.X)
+            if m_obs is not None:
+                resid = resid - m_obs
+            if a is not None:
+                with span("lgt.anchor.weights"):
+                    r1 = a["Y1"]
+                    m1 = self._mean_at(self.prior.mean, a["X1"])
+                    if m1 is not None:
+                        r1 = r1 - m1.to(r1)
+                    resid = resid.to(r1) - a["W"] @ cho_solve(a["chol1"], r1)
+            rhs = to_carrier(self._to_layout(resid), self.mode)
+            res = pcg_ff(self._cg_matvec, self._preconditioner(), rhs, self.noise_variance, tol=self.tol,
+                         maxiter=self.maxiter)
+            self._solve_info = (res.iterations, res.relative_residual)
+            self._weights = self._from_layout((res.x, res.x_lo))
+            if a is not None:
+                with span("lgt.anchor.weights"):
+                    dt = a["W"].dtype
+                    w = self._weights[0].to(dt) + self._weights[1].to(dt)
+                    self._anchor_weights = cho_solve(a["chol1"], r1 - a["W"].T @ w)
+        return self._weights
+
+    @property
+    def representer_weights(self) -> torch.Tensor:
+        """The weights ``S^{-1} (r - W A11^{-1} r1)`` of the residuals ``r = Y
+        - (L m)(X)`` and ``r1 = Y1 - m(X1)`` (``(K + sigma^2 I)^{-1} r``
+        without anchors), in ``X``'s order.  Mode ff returns them in float64
+        (``hi + lo`` of the ff pair): rounding to float32 alone costs a
+        1.6e-3 true relative residual at N = 1e5, noise 1e-3 (PERF.md).  The
+        other modes return the mode's dtype."""
+        return read_back(operand(self._weights_ff(), self.mode), self.mode)
+
+    def _batch_shape(self, x) -> tuple:
+        """The shape of the results at queries ``x`` (``iterative.py:534,553``
+        of the JAX package): ``x.shape`` without the prior's input shape, or
+        ``(nq,)`` for a regressor built from specs (queries ``(nq, d)``)."""
+        shape = tuple(torch.as_tensor(x).shape)
+        return shape[:1] if self.prior is None else shape[: len(shape) - len(self.prior.input_shape)]
+
+    def _queries(self, x) -> torch.Tensor:
+        """The queries as ``(nq, d)`` on the regressor's device."""
+        x = torch.as_tensor(x)
+        return x.reshape(size(self._batch_shape(x)), -1).to(device=self.device, dtype=self.X.dtype)
+
+    def mean(self, x) -> torch.Tensor:
+        """Posterior mean at ``batch + input_shape`` query points (or ``(nq,
+        d)`` for a regressor built from specs), of shape ``batch``, on the
+        regressor's device, in the mode's dtype: ``m(xq) + (k L*)(xq, X) @ w``
+        (``iterative.py:532-552``), with anchors ``+ k(xq, X1) @
+        anchor_weights``.  The terms are summed in float64 (plain: float32)
+        and rounded once."""
+        xq, batch = self._queries(x), self._batch_shape(x)
+        mu = self._cross_matvec(xq, self._weights_ff())
+        a = self._anchors
+        if a is not None:
+            with span("lgt.anchor.mean"):
+                dt = a["W"].dtype
+                k1 = gram_matrix(self.prior.cov, xq.to(dt), a["X1"], aux_mode(self.mode))
+                mu = mu.to(dt) + k1 @ self._anchor_weights
+        m = self._mean_at(None if self.prior is None else self.prior.mean, xq)
+        if m is not None:
+            mu = mu.to(m) + m
+        return mu.to(self.X.dtype).reshape(batch)
+
+    def var(self, x, *, block_size: int = 256, tol: float | None = None) -> torch.Tensor:
+        """Posterior variance at ``batch + input_shape`` query points, of
+        shape ``batch`` (``iterative.py:555-696``, the device branch): per block of
+        ``block_size`` queries, ``kxX = (k L*)(xq, X)`` from K1, blocked ff
+        CG on the ``(n, block)`` right-hand side through one shared K2 (or
+        banded) launch per iteration, and the quadratic form ``U2 . S2``
+        (``+ U1 . Z1`` with anchors, ``U1 = k(X1, xq)``); the result is
+        ``max(prior_var - update, 0)`` with ``prior_var = k(xq, xq)``.
+
+        Modes ff and f64 form the quadratic form and the subtraction in
+        float64 and return float64 (ff, as :attr:`representer_weights`
+        does); plain mode returns float32.  Mode ff evaluates ``kxX`` by K1
+        in f64 and hands it to the CG as an ff pair, not rounded to f32.
+        ``tol``: the CG tolerance of the variance solves (``None``: the
+        regressor's); it is relative to
+        each right-hand side, whose quadratic form can exceed the variance
+        by orders of magnitude where the data pin the posterior down.
+        :attr:`var_info` holds each block's ``(iterations,
+        relative_residual)``."""
+        if self.prior is None:
+            raise ValueError("var needs the prior covariance; a regressor built by from_specs has none")
+        xq, batch = self._queries(x), self._batch_shape(x)
+        a = self._anchors
+        dt = self._dtype
+        M = self._preconditioner()
+        updates, info = [], []
+        for s in range(0, xq.shape[0], int(block_size)):
+            xb = xq[s:s + int(block_size)]
+            U2 = self._kx_rows(xb)  # (n, b) in dt, the CG's rows
+            rhs = U2
+            if a is not None:
+                U1 = gram_matrix(self.prior.cov, a["X1"], xb.to(dt), aux_mode(self.mode))  # (n1, b)
+                T1 = cho_solve(a["chol1"], U1)
+                rhs = U2 - a["W"] @ T1
+            res = pcg_block_ff(self._cg_matvec, M, to_carrier(rhs, self.mode), self.noise_variance,
+                               tol=self.tol if tol is None else tol, maxiter=self.maxiter)
+            info.append((res.iterations, res.relative_residual))
+            S2 = res.x.to(dt) + res.x_lo.to(dt)
+            update = torch.sum(U2 * S2, 0)
+            if a is not None:
+                Z1 = T1 - cho_solve(a["chol1"], a["W"].T @ S2)
+                update = update + torch.sum(U1 * Z1, 0)
+            updates.append(update)
+        self._var_info = info
+        prior_var = self.prior.cov(xq.to(dt).reshape((-1,) + tuple(self.prior.input_shape)))
+        return torch.clamp(prior_var - torch.cat(updates), min=0.0).reshape(batch)
+
+    def std(self, x, **kw) -> torch.Tensor:
+        """Posterior standard deviation: ``sqrt(var(x, **kw))``."""
+        return torch.sqrt(self.var(x, **kw))
+
+
+class IterativeGPRegressor(GramFreeCore):
     """Condition a scalar GP on one operator-observation set, gram-free,
     optionally jointly with a small anchor batch.
 
@@ -133,16 +343,7 @@ class IterativeGPRegressor:
         anchor_Y=None,
         anchor_noise: float = 1e-8,
     ):
-        if prior.output_shape != ():
-            raise ValueError("IterativeGPRegressor supports scalar outputs.")
-        k = prior.cov
-        if L is not None:
-            k_obs = apply_operator_to_kernel(L, apply_operator_to_kernel(L, k, argnum=1), argnum=0)
-            k_cross = apply_operator_to_kernel(L, k, argnum=1)
-            mean_obs = prior.mean if isinstance(prior.mean, Zero) else L(prior.mean)
-        else:
-            k_obs = k_cross = k
-            mean_obs = prior.mean
+        k_obs, k_cross, mean_obs = self._kernels(prior, L)
         grid = grid_factors(X)  # before X becomes a tensor, which drops the factors
         X = torch.as_tensor(np.asarray(X) if grid is not None else X).reshape((-1,) + tuple(prior.input_shape))
         self.prior = prior
@@ -154,7 +355,7 @@ class IterativeGPRegressor:
             if anchor_Y is None:
                 raise ValueError("anchor_X needs anchor_Y")
             # W[i, j] = Cov(L u(X_i), u(X1_j)) = (L k)(X_i, X1_j).
-            k_Lk = apply_operator_to_kernel(L, k, argnum=0) if L is not None else k
+            k_Lk = apply_operator_to_kernel(L, prior.cov, argnum=0) if L is not None else prior.cov
             self._setup_anchors(k_Lk, anchor_X, anchor_Y, anchor_noise)
 
     @classmethod
@@ -188,15 +389,7 @@ class IterativeGPRegressor:
         return self
 
     def _setup(self, obs_spec, cross_spec, X, Y, noise_variance, tol, maxiter, precond_rank, mode, device, grid=None):
-        self.mode = resolve_mode(mode)
-        self.device = resolve_device(device)
-        dtype = mode_dtype(self.mode)
-        X = torch.as_tensor(X)
-        self.X = X.reshape(X.shape[0], -1).to(device=self.device, dtype=dtype).contiguous()
-        self.Y = torch.as_tensor(Y).reshape(-1).to(device=self.device, dtype=dtype)
-        self.noise_variance = float(noise_variance)
-        self.tol = float(tol)
-        self.maxiter = int(maxiter)
+        self._setup_core(X, Y, noise_variance, tol, maxiter, precond_rank, mode, device)
         self._obs_spec = obs_spec
         self._cross_spec = cross_spec
         self._grid_factors = grid
@@ -211,16 +404,6 @@ class IterativeGPRegressor:
             banded = make_banded_matvec(obs_spec, self.X, self.X, mode=self.mode)
             if banded.band_tiles < banded.total_tiles:
                 self._banded = banded
-        n = self.X.shape[0]
-        if precond_rank == "auto":
-            precond_rank = min(512, n // 4) if n >= 1024 else 0
-        self.precond_rank = int(precond_rank)
-        self._precond = None
-        self._anchors = None
-        self._weights = None
-        self._anchor_weights = None
-        self._solve_info = None
-        self._var_info = None
 
     def _setup_grid(self):
         """``_gram_linop``, the observation Gram's Kronecker operator on a grid
@@ -239,17 +422,14 @@ class IterativeGPRegressor:
         self._gram_linop = kron_linop(self._obs_spec, factors, dtype=self._dtype, device=self.device)
 
     # -- the anchor batch (iterative.py:255-279 of the JAX package) ------------
-    @property
-    def _anchor_mode(self) -> str:
-        """The mode of the anchor blocks: f64 unless the regressor is plain."""
-        return "plain" if self.mode == "plain" else "f64"
-
     def _setup_anchors(self, k_Lk, anchor_X, anchor_Y, anchor_noise):
-        dt = mode_dtype(self._anchor_mode)
+        """The anchor blocks in :attr:`_dtype`, evaluated in the auxiliary
+        mode (f64 unless the regressor is plain)."""
+        dt, am = self._dtype, aux_mode(self.mode)
         X1 = torch.as_tensor(anchor_X).reshape((-1,) + tuple(self.prior.input_shape))
         X1 = X1.reshape(X1.shape[0], -1).to(device=self.device, dtype=dt).contiguous()
         with span("lgt.anchor.setup"):
-            A11 = gram_matrix(self.prior.cov, X1, X1, self._anchor_mode)
+            A11 = gram_matrix(self.prior.cov, X1, X1, am)
             A11 = A11 + float(anchor_noise) * torch.eye(X1.shape[0], dtype=dt, device=self.device)
             self._anchors = dict(
                 X1=X1,
@@ -257,7 +437,7 @@ class IterativeGPRegressor:
                 k_Lk=k_Lk,
                 noise=float(anchor_noise),
                 chol1=cholesky(A11, jitter=0.0),
-                W=gram_matrix(k_Lk, self.X.to(dt), X1, self._anchor_mode),  # (n, n1)
+                W=gram_matrix(k_Lk, self.X.to(dt), X1, am),  # (n, n1)
             )
 
     # -- checkpoint / resume (utils/serialization.py) ------------------------------
@@ -288,18 +468,13 @@ class IterativeGPRegressor:
         U1^T`` (``iterative.py:378-418``), which is itself a PSD kernel:
         a preconditioner of ``A22`` alone leaves ~n1 directions badly
         mapped."""
-        if self._obs_spec is None:
-            out = gram_matrix(self._k_obs, x0, x1, self.mode)
-        else:
-            scale, terms = self._obs_spec
-            out = gram(terms, x0, x1, self.mode)
-            out = scale * out if scale != 1.0 else out
+        out = self._obs_block(x0, x1)
         a = self._anchors
         if a is not None:
             with span("lgt.anchor.precond"):
                 dt = a["W"].dtype
-                U0 = gram_matrix(a["k_Lk"], x0.to(dt), a["X1"], self._anchor_mode)
-                U1 = gram_matrix(a["k_Lk"], x1.to(dt), a["X1"], self._anchor_mode)
+                U0 = gram_matrix(a["k_Lk"], x0.to(dt), a["X1"], aux_mode(self.mode))
+                U1 = gram_matrix(a["k_Lk"], x1.to(dt), a["X1"], aux_mode(self.mode))
                 out = out.to(dt) - U0 @ cho_solve(a["chol1"], U1.T)
         return out
 
@@ -341,15 +516,12 @@ class IterativeGPRegressor:
         operator and the dense Gram: the split of their float64 product); the
         other modes read the hi plane and return one tensor."""
         op = self._gram_linop if self._gram_linop is not None else self._dense_obs_gram()
+        v = operand(v_ff, self.mode)
         if op is not None:
-            if self.mode == "ff":
-                return ff_split(op @ (v_ff[0].double() + v_ff[1].double()), v_ff[0].dtype)
-            return op @ v_ff[0]
-        if self.mode != "ff":
-            v_ff = v_ff[0]
+            return to_carrier(op @ read_back(v, self.mode), self.mode)
         if self._banded is not None:
-            return self._banded(v_ff)
-        return gram_matvec_sym(self._obs_spec, self.X, v_ff, self.mode)
+            return self._banded(v)
+        return gram_matvec_sym(self._obs_spec, self.X, v, self.mode)
 
     def _cg_matvec(self, v_ff):
         """The CG operator without the noise shift: the Gram matvec, minus
@@ -365,31 +537,22 @@ class IterativeGPRegressor:
         with span("lgt.anchor.schur"):
             dt = a["W"].dtype
             v = v_ff[0].to(dt) + v_ff[1].to(dt)
-            out = out[0].to(dt) + out[1].to(dt) if self.mode == "ff" else out.to(dt)
-            return out - a["W"] @ cho_solve(a["chol1"], a["W"].T @ v)
+            return read_back(out, self.mode).to(dt) - a["W"] @ cho_solve(a["chol1"], a["W"].T @ v)
 
-    def _solve_device_cg(self, rhs: torch.Tensor):
-        res = pcg_ff(
-            self._cg_matvec,
-            self._preconditioner(),
-            rhs,
-            self.noise_variance,
-            tol=self.tol,
-            maxiter=self.maxiter,
-        )
-        self._solve_info = (res.iterations, res.relative_residual)
-        return res.x, res.x_lo
+    def _cross_matvec(self, xq, w):
+        """``(k L*)(xq, X) @ w`` of the weights' ff pair ``w``, in float64
+        (plain: float32): K2 (mode ff: on the pair), or a kernel without a
+        spec's dense cross Gram on ``hi + lo``."""
+        if self._cross_spec is None:
+            w64 = w[0].double() + w[1].double()
+            return gram_matrix(self._k_cross, xq, self.X, "f64").to(self._dtype) @ w64.to(self._dtype)
+        return read_back(gram_matvec(self._cross_spec, xq, self.X, operand(w, self.mode), self.mode), self.mode)
 
-    @property
-    def solve_info(self):
-        """``(iterations, relative_residual)`` of the most recent solve."""
-        return self._solve_info
-
-    @property
-    def var_info(self):
-        """``[(iterations, relative_residual), ...]`` of the last
-        :meth:`var` call's query blocks (the residual: its worst column)."""
-        return self._var_info
+    def _kx_rows(self, xb):
+        """``kxX^T = (k L*)(xb, X)^T``, ``(n, b)``, in :attr:`_dtype`: K1 in
+        the auxiliary mode on the points as stored."""
+        dt = self._dtype
+        return gram_matrix(self._k_cross, xb.to(dt), self.X.to(dt), aux_mode(self.mode)).T.contiguous()
 
     def refit(self, Y, anchor_Y=None) -> "IterativeGPRegressor":
         """Re-condition on new observation values (and new anchor values),
@@ -408,159 +571,8 @@ class IterativeGPRegressor:
         return self
 
     @property
-    def _dtype(self) -> torch.dtype:
-        """The dtype of the solver's state past the points' precision (the
-        Nyström factors, the dense Gram, residuals, the variance's quadratic
-        form): float64 unless the mode is plain."""
-        return torch.float32 if self.mode == "plain" else torch.float64
-
-    def _mean_at(self, f, X) -> torch.Tensor | None:
-        """The function ``f`` (a prior mean or ``L`` of it) at stored ``(n,
-        d)`` points ``X``, evaluated in float64 on the points as stored (the
-        points K1 and K2 see) and returned in :attr:`_dtype`; ``None`` for a
-        zero or absent mean."""
-        if f is None or isinstance(f, Zero):
-            return None
-        vals = f(X.double().reshape((-1,) + tuple(self.prior.input_shape)))
-        return vals.reshape(-1).to(self._dtype)
-
-    def _weights_ff(self):
-        """The solved weights as the CG's ff pair ``(hi, lo)``; with anchors
-        also the anchor weights (``iterative.py:515-529``).  The right-hand
-        side is the residual ``Y - (L m)(X)`` (with anchors, minus ``W
-        A11^{-1} (Y1 - m(X1))``), formed in float64 (plain: float32) and
-        handed to the CG as an ff pair in mode ff."""
-        if self._weights is None:
-            a = self._anchors
-            resid = self.Y.to(self._dtype)
-            m_obs = self._mean_at(self._mean_obs, self.X)
-            if m_obs is not None:
-                resid = resid - m_obs
-            if a is not None:
-                with span("lgt.anchor.weights"):
-                    r1 = a["Y1"]
-                    m1 = self._mean_at(self.prior.mean, a["X1"])
-                    if m1 is not None:
-                        r1 = r1 - m1.to(r1)
-                    resid = resid.to(r1) - a["W"] @ cho_solve(a["chol1"], r1)
-            rhs = ff_split(resid.double(), self.X.dtype) if self.mode == "ff" else resid.to(self.X.dtype)
-            self._weights = self._solve_device_cg(rhs)
-            if a is not None:
-                with span("lgt.anchor.weights"):
-                    dt = a["W"].dtype
-                    w = self._weights[0].to(dt) + self._weights[1].to(dt)
-                    self._anchor_weights = cho_solve(a["chol1"], r1 - a["W"].T @ w)
-        return self._weights
-
-    @property
-    def representer_weights(self) -> torch.Tensor:
-        """The weights ``S^{-1} (r - W A11^{-1} r1)`` of the residuals ``r = Y
-        - (L m)(X)`` and ``r1 = Y1 - m(X1)`` (``(K + sigma^2 I)^{-1} r``
-        without anchors).  Mode ff returns them in float64 (``hi + lo``
-        of the ff pair): rounding to float32 alone costs a 1.6e-3 true
-        relative residual at N = 1e5, noise 1e-3 (PERF.md).  The other
-        modes return the mode's dtype."""
-        hi, lo = self._weights_ff()
-        return hi.double() + lo.double() if self.mode == "ff" else hi
-
-    @property
     def anchor_weights(self) -> torch.Tensor | None:
         """The anchor batch's weights ``A11^{-1} (r1 - W^T w)`` in the anchor
         blocks' dtype, or ``None`` without anchors."""
         self._weights_ff()
         return self._anchor_weights
-
-    def _batch_shape(self, x) -> tuple:
-        """The shape of the results at queries ``x`` (``iterative.py:534,553``
-        of the JAX package): ``x.shape`` without the prior's input shape, or
-        ``(nq,)`` for a regressor built from specs (queries ``(nq, d)``)."""
-        shape = tuple(torch.as_tensor(x).shape)
-        return shape[:1] if self.prior is None else shape[: len(shape) - len(self.prior.input_shape)]
-
-    def _queries(self, x) -> torch.Tensor:
-        """The queries as ``(nq, d)`` on the regressor's device."""
-        x = torch.as_tensor(x)
-        return x.reshape(size(self._batch_shape(x)), -1).to(device=self.device, dtype=self.X.dtype)
-
-    def mean(self, x) -> torch.Tensor:
-        """Posterior mean at ``batch + input_shape`` query points (or ``(nq,
-        d)`` for a regressor built from specs), of shape ``batch``, on the
-        regressor's device, in the mode's dtype: ``m(xq) + (k L*)(xq, X) @ w``
-        (``iterative.py:532-552``), with anchors ``+ k(xq, X1) @
-        anchor_weights``.  The terms are summed in float64 (plain: float32)
-        and rounded once."""
-        xq, batch = self._queries(x), self._batch_shape(x)
-        w = self._weights_ff()
-        if self._cross_spec is None:
-            w64 = w[0].double() + w[1].double()
-            mu = gram_matrix(self._k_cross, xq, self.X, "f64").to(self._dtype) @ w64.to(self._dtype)
-        elif self.mode == "ff":
-            hi, lo = gram_matvec(self._cross_spec, xq, self.X, w, self.mode)
-            mu = hi.double() + lo.double()
-        else:
-            mu = gram_matvec(self._cross_spec, xq, self.X, w[0], self.mode)
-        a = self._anchors
-        if a is not None:
-            with span("lgt.anchor.mean"):
-                dt = a["W"].dtype
-                k1 = gram_matrix(self.prior.cov, xq.to(dt), a["X1"], self._anchor_mode)
-                mu = mu.to(dt) + k1 @ self._anchor_weights
-        m = self._mean_at(None if self.prior is None else self.prior.mean, xq)
-        if m is not None:
-            mu = mu.to(m) + m
-        return mu.to(self.X.dtype).reshape(batch)
-
-    def var(self, x, *, block_size: int = 256, tol: float | None = None) -> torch.Tensor:
-        """Posterior variance at ``batch + input_shape`` query points, of
-        shape ``batch`` (``iterative.py:555-696``, the device branch): per block of
-        ``block_size`` queries, ``kxX = (k L*)(xq, X)`` from K1, blocked ff
-        CG on the ``(n, block)`` right-hand side through one shared K2 (or
-        banded) launch per iteration, and the quadratic form ``U2 . S2``
-        (``+ U1 . Z1`` with anchors, ``U1 = k(X1, xq)``); the result is
-        ``max(prior_var - update, 0)`` with ``prior_var = k(xq, xq)``.
-
-        Modes ff and f64 form the quadratic form and the subtraction in
-        float64 and return float64 (ff, as :attr:`representer_weights`
-        does); plain mode returns float32.  Mode ff evaluates ``kxX`` by K1
-        in f64 and hands it to the CG as an ff pair, not rounded to f32.
-        ``tol``: the CG tolerance of the variance solves (``None``: the
-        regressor's); it is relative to
-        each right-hand side, whose quadratic form can exceed the variance
-        by orders of magnitude where the data pin the posterior down.
-        :attr:`var_info` holds each block's ``(iterations,
-        relative_residual)``."""
-        if self.prior is None:
-            raise ValueError("var needs the prior covariance; a regressor built by from_specs has none")
-        xq, batch = self._queries(x), self._batch_shape(x)
-        a = self._anchors
-        dt = self._dtype
-        M = self._preconditioner()
-        updates, info = [], []
-        # kxX in the quadratic form's dtype: f64 K1 on the points as stored.
-        kx_mode = "plain" if self.mode == "plain" else "f64"
-        for s in range(0, xq.shape[0], int(block_size)):
-            xb = xq[s:s + int(block_size)]
-            U2 = gram_matrix(self._k_cross, xb.to(dt), self.X.to(dt), kx_mode).T.contiguous()  # (n, b)
-            rhs = U2
-            if a is not None:
-                U1 = gram_matrix(self.prior.cov, a["X1"], xb.to(dt), self._anchor_mode)  # (n1, b)
-                T1 = cho_solve(a["chol1"], U1)
-                rhs = U2 - a["W"] @ T1
-            if rhs.dtype != self.X.dtype:
-                rhs = ff_split(rhs, self.X.dtype)
-            res = pcg_block_ff(self._cg_matvec, M, rhs, self.noise_variance, tol=self.tol if tol is None else tol,
-                               maxiter=self.maxiter)
-            info.append((res.iterations, res.relative_residual))
-            S2 = res.x.to(dt) + res.x_lo.to(dt)
-            update = torch.sum(U2 * S2, 0)
-            if a is not None:
-                Z1 = T1 - cho_solve(a["chol1"], a["W"].T @ S2)
-                update = update + torch.sum(U1 * Z1, 0)
-            updates.append(update)
-        self._var_info = info
-        prior_var = self.prior.cov(xq.to(dt).reshape((-1,) + tuple(self.prior.input_shape)))
-        return torch.clamp(prior_var - torch.cat(updates), min=0.0).reshape(batch)
-
-    def std(self, x, **kw) -> torch.Tensor:
-        """Posterior standard deviation: ``sqrt(var(x, **kw))``."""
-        return torch.sqrt(self.var(x, **kw))

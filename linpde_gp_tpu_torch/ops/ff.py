@@ -11,7 +11,8 @@ functions in ``csrc/ff.cuh``.
 
 These run on any device.  They are the plain version of the
 float-float kernel body (``ops/gram.py``) and the arithmetic of the
-float-float CG vectors (``ops/linalg/pcg.py``).
+float-float CG vectors (``ops/linalg/pcg.py``); the last section, how
+each arithmetic mode carries the gram-free CG's vectors.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import math
 
 import numpy as np
 import torch
+
+from ..config import mode_dtype
 
 __all__ = [
     "two_sum",
@@ -36,6 +39,12 @@ __all__ = [
     "ff_exp",
     "ff_const",
     "ff_split",
+    "state_dtype",
+    "aux_mode",
+    "to_carrier",
+    "operand",
+    "read_back",
+    "planewise",
 ]
 
 
@@ -194,3 +203,41 @@ def ff_exp(x):
 
     two_k = _exp2_int(kf)
     return (acc[0] * two_k, acc[1] * two_k)
+
+
+# -- the mode's carrier ---------------------------------------------------------
+# How each mode carries the gram-free CG's vectors: mode ff as ff pairs, read
+# back as ``hi + lo`` in float64; plain and f64 as one tensor of the mode's
+# dtype.  The state past the points' precision is float64 unless plain.
+
+
+def state_dtype(mode: str) -> torch.dtype:
+    """The solver's state past the points' precision: float64 unless plain."""
+    return torch.float32 if mode == "plain" else torch.float64
+
+
+def aux_mode(mode: str) -> str:
+    """The mode of kernel blocks kept in :func:`state_dtype`: f64 unless plain."""
+    return "plain" if mode == "plain" else "f64"
+
+
+def to_carrier(x: torch.Tensor, mode: str):
+    """A :func:`state_dtype` tensor as the CG's carrier: its ff pair in mode
+    ff (split, not rounded), else in the mode's dtype."""
+    return ff_split(x.double(), mode_dtype(mode)) if mode == "ff" else x.to(mode_dtype(mode))
+
+
+def operand(v_ff, mode: str):
+    """The kernels' operand of an ff pair: the pair in mode ff, else ``hi``."""
+    return v_ff if mode == "ff" else v_ff[0]
+
+
+def read_back(out, mode: str) -> torch.Tensor:
+    """A kernel's result (or an :func:`operand`) as one tensor: ``hi + lo``
+    in float64 in mode ff, else as it is."""
+    return out[0].double() + out[1].double() if mode == "ff" else out
+
+
+def planewise(fn, x):
+    """``fn`` of a tensor, or of each plane of an ff pair."""
+    return tuple(fn(p) for p in x) if isinstance(x, tuple) else fn(x)

@@ -6,9 +6,10 @@ Port of the main-path subset of ``linpde_gp_tpu/ops/linalg/pcg.py``:
 side :func:`pcg_block_ff` with its two step functions, the plain
 :func:`pcg` and :func:`pcg_block`, the ff scalar helpers, :func:`ff_dot_cols` and
 :func:`ff_norm2_cols`,
-:class:`NystromPreconditioner`, :func:`nystrom_preconditioner` (on formed
-blocks), :func:`nystrom_preconditioner_device` and
-:func:`landmark_indices`.
+:class:`NystromPreconditioner` and its pair rule :func:`woodbury_apply`,
+:func:`nystrom_preconditioner` (on formed blocks),
+:func:`nystrom_preconditioner_device`, :func:`landmark_indices`, and the
+helpers :func:`as_ff` and :func:`lam1`.
 
 Differences from the JAX package:
 
@@ -107,7 +108,7 @@ def _ff_axpy(alpha_ff, x_ff, y_ff):
     return ff_add(y_ff, ff_mul(x_ff, alpha_ff))
 
 
-def _as_ff(K, dtype: torch.dtype):
+def as_ff(K, dtype: torch.dtype):
     """A matvec, preconditioner or right-hand side value as an ff pair in
     ``dtype``: an ff pair as it is, ``(K, 0)``, or a wider (float64)
     tensor split into ``hi + lo`` instead of rounded."""
@@ -128,7 +129,7 @@ def _step_a(matvec, sigma_ff, x, p, r, rz):
     ``sigma^2 I`` shift is applied in ff here."""
     with span("lgt.pcg.matvec"):
         Ap = matvec(p)
-    Ap = ff_add(_as_ff(Ap, p[0].dtype), ff_mul(p, sigma_ff))
+    Ap = ff_add(as_ff(Ap, p[0].dtype), ff_mul(p, sigma_ff))
     alpha = ff_div(rz, ff_dot(p, Ap))
     x_new = _ff_axpy(alpha, p, x)
     r_new = _ff_axpy((-alpha[0], -alpha[1]), Ap, r)
@@ -142,7 +143,7 @@ def _step_a(matvec, sigma_ff, x, p, r, rz):
 def _step_b(precond, r, r_old, p, rz_old):
     """Preconditioner apply, ``r.z`` and the Polak-Ribiere beta (clamped
     at 0, i.e. a restart), and the p update."""
-    zf = r if precond is None else _as_ff(precond(r), r[0].dtype)
+    zf = r if precond is None else as_ff(precond(r), r[0].dtype)
     rz_new = ff_dot(r, zf)
     beta = ff_div(ff_sub(rz_new, ff_dot(zf, r_old)), rz_old)
     neg = beta[0] < 0  # stays on the device: no host sync here
@@ -172,7 +173,7 @@ def pcg_ff(
     iteration.  The solution is ``x + x_lo`` of the result.
     """
     with span("lgt.pcg"):
-        b = _as_ff(b, b.dtype) if torch.is_tensor(b) else b
+        b = as_ff(b, b.dtype) if torch.is_tensor(b) else b
         dtype = b[0].dtype
         zeros = torch.zeros_like(b[0])
         with span("lgt.host_read"):
@@ -312,7 +313,7 @@ def _block_step_a(matvec, sigma_ff, X, P, R, rz, active):
     squares of ``hi + lo``, never negative)."""
     with span("lgt.pcg.matvec"):
         AP = matvec(P)
-    AP = ff_add(_as_ff(AP, P[0].dtype), ff_mul(P, sigma_ff))
+    AP = ff_add(as_ff(AP, P[0].dtype), ff_mul(P, sigma_ff))
     pAp = ff_dot_cols(P, AP)
     safe = (pAp[0] != 0) & active
     alpha = ff_div(rz, (torch.where(safe, pAp[0], 1.0), torch.where(safe, pAp[1], 0.0)))
@@ -325,7 +326,7 @@ def _block_step_a(matvec, sigma_ff, X, P, R, rz, active):
 def _block_step_b(precond, R, R_old, P, rz_old, active):
     """The blocked ``_step_b``: preconditioner apply, per-column ``r.z``
     and the Polak-Ribiere beta (0 where frozen or negative), the P update."""
-    Zf = R if precond is None else _as_ff(precond(R), R[0].dtype)
+    Zf = R if precond is None else as_ff(precond(R), R[0].dtype)
     rz_new = ff_dot_cols(R, Zf)
     num = ff_sub(rz_new, ff_dot_cols(Zf, R_old))
     safe = (rz_old[0] != 0) & active
@@ -363,7 +364,7 @@ def pcg_block_ff(
     ``iterations`` the loop's count.
     """
     with span("lgt.pcg_block"):
-        B = _as_ff(B, B.dtype) if torch.is_tensor(B) else B
+        B = as_ff(B, B.dtype) if torch.is_tensor(B) else B
         dtype = B[0].dtype
         zeros = torch.zeros_like(B[0])
         b_norm2 = torch.sum((B[0].to(torch.float64) + B[1].to(torch.float64)) ** 2, 0)
@@ -413,27 +414,31 @@ class NystromPreconditioner(NamedTuple):
     delta: torch.Tensor  # lambda_m + sigma^2
 
     def __call__(self, r):
-        """``P^{-1} r`` for a tensor ``r`` (``(n,)`` or ``(n, k)``), returned
-        in its dtype, or for an ff pair ``(hi, lo)``: applied to ``hi + lo``
-        in the factors' precision where it is wider than the pair's (float64
-        factors, float32 pairs: mode ff), else to ``hi``, and returned as
-        the result's ff pair in ``hi``'s dtype (a float64 result split, not
-        rounded)."""
+        """``P^{-1} r`` by :func:`woodbury_apply`."""
         with span("lgt.nystrom.apply"):
-            pair = isinstance(r, tuple)
-            r_dtype = r[0].dtype if pair else r.dtype
-            if pair and torch.finfo(self.B.dtype).eps < torch.finfo(r_dtype).eps:
-                rr = r[0].to(self.B.dtype) + r[1].to(self.B.dtype)
-            else:
-                rr = (r[0] if pair else r).to(self.B.dtype)
-            vector = rr.ndim == 1
-            if vector:
-                rr = rr[:, None]
-            w = torch.cholesky_solve(self.B.T @ rr, self.chol_C)
-            out = (rr - self.B @ w) / self.delta
-            if vector:
-                out = out[:, 0]
-            return _as_ff(out, r_dtype) if pair else out.to(r_dtype)
+            return woodbury_apply(r, self.B.dtype, self._apply)
+
+    def _apply(self, rr):
+        return (rr - self.B @ torch.cholesky_solve(self.B.T @ rr, self.chol_C)) / self.delta
+
+
+def woodbury_apply(r, dtype: torch.dtype, apply: Callable):
+    """``apply`` (a Woodbury apply on ``(n, k)`` columns in its factors'
+    ``dtype``) to a tensor ``r`` (``(n,)`` or ``(n, k)``), returned in its
+    dtype, or to an ff pair ``(hi, lo)``: applied to ``hi + lo`` in
+    ``dtype`` where it is wider than the pair's (float64 factors, float32
+    pairs: mode ff), else to ``hi``, and returned as the result's ff pair in
+    ``hi``'s dtype (a float64 result split, not rounded)."""
+    pair = isinstance(r, tuple)
+    r_dtype = r[0].dtype if pair else r.dtype
+    if pair and torch.finfo(dtype).eps < torch.finfo(r_dtype).eps:
+        rr = r[0].to(dtype) + r[1].to(dtype)
+    else:
+        rr = (r[0] if pair else r).to(dtype)
+    vector = rr.ndim == 1
+    out = apply(rr[:, None] if vector else rr)
+    out = out[:, 0] if vector else out
+    return as_ff(out, r_dtype) if pair else out.to(r_dtype)
 
 
 def nystrom_preconditioner(K_XZ, K_ZZ, sigma_sq) -> NystromPreconditioner:
@@ -468,7 +473,7 @@ def nystrom_preconditioner(K_XZ, K_ZZ, sigma_sq) -> NystromPreconditioner:
     return NystromPreconditioner(B, chol_C, torch.tensor(delta, dtype=K_ZZ.dtype, device=K_ZZ.device))
 
 
-def _lam1(A, iters=16):
+def lam1(A, iters=16):
     """Largest eigenvalue of a PSD matrix by power iteration."""
     m = A.shape[0]
     v = torch.ones(m, dtype=A.dtype, device=A.device) / np.sqrt(m)
@@ -506,7 +511,7 @@ def nystrom_preconditioner_device(
 
     K_ZZ = block_fn(Z, Z).to(dtype)
     K_ZZ = 0.5 * (K_ZZ + K_ZZ.T)
-    nu = f32_floor * eps_blocks * _lam1(K_ZZ)
+    nu = f32_floor * eps_blocks * lam1(K_ZZ)
     L = robust_cholesky(K_ZZ + nu * eye, jitter=0.0)
     del K_ZZ
     L_inv_T = torch.linalg.solve_triangular(L, eye, upper=False).T
@@ -514,7 +519,7 @@ def nystrom_preconditioner_device(
     del L, L_inv_T
     C0 = B.T @ B
     C0 = 0.5 * (C0 + C0.T)
-    lam1_c0 = _lam1(C0)
+    lam1_c0 = lam1(C0)
 
     # lambda_min(C0) by inverse iteration against a minimally stabilized
     # factor (the tail damping needs it where it exceeds the floor).

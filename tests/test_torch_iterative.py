@@ -263,6 +263,23 @@ def test_batch_shaped_queries_match_jax():
     np.testing.assert_array_equal(reg.mean(xq.reshape(12, 2)).numpy(), mean.numpy().reshape(12))
 
 
+@pytest.mark.parametrize("mode", ["ff", "f64"])
+def test_precond_rank_above_n_is_rank_n(mode):
+    """A ``precond_rank`` above the number of points is clamped to it: the
+    attribute reads n, and the weights, solve info and mean are those of an
+    explicit ``precond_rank = n``, bit for bit."""
+    from linpde_gp_tpu_torch.ops.diffops import HeatOperator
+
+    X, Y, xq = _problem(n=200, nq=16)
+    kw = dict(L=HeatOperator((2,), alpha=0.1), noise_variance=1e-4, tol=1e-8, mode=mode, device="cpu")
+    big = IterativeGPRegressor(_heat_prior(), X, Y, precond_rank=10_000, **kw)
+    exact = IterativeGPRegressor(_heat_prior(), X, Y, precond_rank=200, **kw)
+    assert big.precond_rank == exact.precond_rank == 200
+    assert torch.equal(big.representer_weights, exact.representer_weights)
+    assert big.solve_info == exact.solve_info
+    assert torch.equal(big.mean(xq), exact.mean(xq))
+
+
 def test_no_card_and_no_device_raises(monkeypatch):
     """The port runs on the card unless asked for the CPU: without a card and
     without ``device=`` or ``config.device``, resolving the device and
