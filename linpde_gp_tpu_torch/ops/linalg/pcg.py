@@ -8,7 +8,8 @@ side :func:`pcg_block_ff` with its two step functions, the plain
 :func:`ff_norm2_cols`,
 :class:`NystromPreconditioner` and its pair rule :func:`woodbury_apply`,
 :func:`nystrom_preconditioner` (on formed blocks),
-:func:`nystrom_preconditioner_device`, :func:`landmark_indices`, and the
+:func:`nystrom_preconditioner_device` with its products
+:func:`nystrom_products`, :func:`landmark_indices`, and the
 helpers :func:`as_ff` and :func:`lam1`.
 
 Differences from the JAX package:
@@ -483,6 +484,59 @@ def lam1(A, iters=16):
     return float(torch.linalg.vector_norm(A @ v))
 
 
+#: The Nyström build's products in column panels (:func:`nystrom_products`):
+#: this many panels, each a multiple of :data:`PANEL_ALIGN` wide, from a rank
+#: of :data:`PANEL_MIN_RANK` on; below it one product each.
+NYSTROM_PANELS = 8
+PANEL_ALIGN = 128
+PANEL_MIN_RANK = 1024
+
+
+def nystrom_panel_width(m: int) -> int:
+    """The panel width of :func:`nystrom_products` at rank ``m``: ``m``
+    over :data:`NYSTROM_PANELS`, rounded up to a multiple of
+    :data:`PANEL_ALIGN`, or ``m`` (one panel) below :data:`PANEL_MIN_RANK`."""
+    if m < PANEL_MIN_RANK:
+        return m
+    return -(-m // (NYSTROM_PANELS * PANEL_ALIGN)) * PANEL_ALIGN
+
+
+def nystrom_products(K_XZ: torch.Tensor, L_inv_T: torch.Tensor, nb: int | None = None):
+    """``B = K_XZ L^{-T}`` and ``C0 = B^T B``, exactly symmetric, for an
+    ``(n, m)`` block ``K_XZ`` and the upper triangular ``L_inv_T``.
+
+    From a rank ``m`` of :data:`PANEL_MIN_RANK` on, both are formed in
+    column panels of ``nb`` (``None``: :func:`nystrom_panel_width`; tests
+    set it), which skip the exact zeros below ``L_inv_T``'s diagonal and
+    the lower half of ``C0``: with ``p`` panels each product does
+    ``(1 + 1/p) / 2`` of the full one's multiply-adds.  ``B``'s panel
+    ``j`` is ``K_XZ``'s first ``j + 1`` panels times ``L_inv_T``'s blocks
+    on and above the diagonal in column ``j``; ``C0``'s row panel ``i`` is
+    ``B``'s panel ``i`` against ``B``'s columns from ``i`` on, and the
+    strict upper triangle is then mirrored.  ``nb >= m`` is the single
+    product of each.
+    """
+    n, m = K_XZ.shape
+    nb = nystrom_panel_width(m) if nb is None else nb
+    if nb >= m:
+        B = K_XZ @ L_inv_T
+        del K_XZ
+        C0 = B.T @ B
+        return B, 0.5 * (C0 + C0.T)
+    with span("lgt.nystrom.panels"):
+        B = torch.empty((n, m), dtype=K_XZ.dtype, device=K_XZ.device)
+        for j0 in range(0, m, nb):
+            j1 = min(m, j0 + nb)
+            torch.mm(K_XZ[:, :j1], L_inv_T[:j1, j0:j1], out=B[:, j0:j1])
+        del K_XZ  # freed before C0 is formed where the caller keeps no reference
+        C0 = torch.empty((m, m), dtype=B.dtype, device=B.device)
+        for i0 in range(0, m, nb):
+            torch.mm(B[:, i0:i0 + nb].T, B[:, i0:], out=C0[i0:i0 + nb, i0:])
+        C0.triu_()
+        C0 += C0.triu(1).T
+    return B, C0
+
+
 def nystrom_preconditioner_device(
     block_fn: Callable,
     X: torch.Tensor,
@@ -501,9 +555,10 @@ def nystrom_preconditioner_device(
     rounding can make ``K_ZZ`` indefinite at that level; the damping
     delta is floored at ``f32_floor * eps * lambda_1(C0)`` with ``eps`` of
     ``dtype``, the Woodbury apply's cancellation limit.  In float64 the
-    floors are ~1e-15 relative and never bind.
+    floors are ~1e-15 relative and never bind.  ``B`` and ``C0 = B^T B``
+    come from :func:`nystrom_products`.
     """
-    n, m = X.shape[0], Z.shape[0]
+    m = Z.shape[0]
     dtype = X.dtype if dtype is None else dtype
     eps_blocks = torch.finfo(X.dtype).eps
     eps_dev = torch.finfo(dtype).eps
@@ -515,10 +570,9 @@ def nystrom_preconditioner_device(
     L = robust_cholesky(K_ZZ + nu * eye, jitter=0.0)
     del K_ZZ
     L_inv_T = torch.linalg.solve_triangular(L, eye, upper=False).T
-    B = block_fn(X, Z).to(dtype) @ L_inv_T
-    del L, L_inv_T
-    C0 = B.T @ B
-    C0 = 0.5 * (C0 + C0.T)
+    del L
+    B, C0 = nystrom_products(block_fn(X, Z).to(dtype), L_inv_T)
+    del L_inv_T
     lam1_c0 = lam1(C0)
 
     # lambda_min(C0) by inverse iteration against a minimally stabilized

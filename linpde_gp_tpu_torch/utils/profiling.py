@@ -17,6 +17,9 @@ span is one flag check.  The spans:
 
 - ``lgt.nystrom.build``: the Nyström preconditioner's build
   (``models/iterative.py::_preconditioner``), when it builds;
+  ``lgt.nystrom.panels``: the build's two products in column panels
+  (``ops/linalg/pcg.py::nystrom_products``), once a build that takes that
+  route (rank 1,024 and up), inside ``lgt.nystrom.build``;
 - ``lgt.nystrom.apply``: one Woodbury apply
   (``ops/linalg/pcg.py::NystromPreconditioner.__call__``);
 - ``lgt.pcg``, ``lgt.pcg_block``: one whole solve of :func:`pcg_ff`, of

@@ -27,6 +27,7 @@ from linpde_gp_tpu.ops.linalg.pcg import (
     nystrom_preconditioner_device as jax_nystrom_device,
     pcg_block as jax_pcg_block,
 )
+from linpde_gp_tpu_torch.ops.linalg import pcg
 from linpde_gp_tpu_torch.ops.linalg.chol import cho_solve, cholesky, solve_triangular
 from linpde_gp_tpu_torch.ops.linalg.pcg import (
     ff_div,
@@ -34,7 +35,9 @@ from linpde_gp_tpu_torch.ops.linalg.pcg import (
     ff_dot_cols,
     ff_norm2_cols,
     landmark_indices,
+    nystrom_panel_width,
     nystrom_preconditioner_device,
+    nystrom_products,
     pcg_block,
     pcg_block_ff,
     pcg_ff,
@@ -147,6 +150,87 @@ def test_nystrom_device_matches_jax_f64():
     M_t = nystrom_preconditioner_device(kfun, Xt, Xt[landmark_indices(n, m)], sigma)
     assert abs(float(M_t.delta) - float(M_j.delta)) <= 1e-6 * float(M_j.delta)
     r = rng.standard_normal(n)
+    want = np.asarray(M_j(jnp.asarray(r)))
+    got = M_t(torch.from_numpy(r)).numpy()
+    assert np.max(np.abs(got - want)) <= 1e-6 * np.max(np.abs(want))
+
+
+def _matern52_2d(x0, x1):
+    """Matérn 5/2 at length scale 1/20 on 2-D points: a well-conditioned
+    ``K_ZZ`` at 1,024 landmarks in [-1, 1]^2, so ``B`` carries no
+    cancellation beyond its products' rounding."""
+    d = torch.sqrt(((x0[:, None] - x1[None]) ** 2).sum(-1)) * 20.0
+    return 2.0 * (1.0 + d + d * d / 3.0) * torch.exp(-d)
+
+
+def _matern52_2d_jax(x0, x1):
+    d = jnp.sqrt(((x0[:, None] - x1[None]) ** 2).sum(-1)) * 20.0
+    return 2.0 * (1.0 + d + d * d / 3.0) * jnp.exp(-d)
+
+
+def _nystrom_case(n, m, seed=23):
+    """Points, landmarks, ``K_XZ`` and ``L^{-T}`` as the device build forms them."""
+    X = torch.from_numpy(np.random.default_rng(seed).uniform(-1, 1, (n, 2)))
+    Z = X[landmark_indices(n, m)]
+    K_ZZ = _matern52_2d(Z, Z)
+    K_ZZ = 0.5 * (K_ZZ + K_ZZ.T)
+    eye = torch.eye(m, dtype=torch.float64)
+    L = cholesky(K_ZZ + 8.0 * torch.finfo(torch.float64).eps * float(torch.linalg.eigvalsh(K_ZZ)[-1]) * eye)
+    return X, Z, _matern52_2d(X, Z), torch.linalg.solve_triangular(L, eye, upper=False).T
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("m,want", [(96, 96), (1000, 1000), (1024, 128), (4096, 512), (8192, 1024), (8000, 1024)])
+def test_nystrom_panel_width(m, want):
+    """Eight panels, each a multiple of 128 wide, from rank 1,024 on; one below."""
+    assert nystrom_panel_width(m) == want
+
+
+@pytest.mark.parametrize("n,m,nb", [(4096, 1024, None), (4096, 1000, 128)])
+def test_nystrom_panels_match_single_product(n, m, nb, monkeypatch):
+    """The panelled products against the single ones on the same inputs (the
+    default eight panels at rank 1,024; a ragged last panel at 1,000): ``B``
+    and ``C0`` at rounding level, ``C0`` exactly symmetric, and the build's
+    ``delta`` and Woodbury apply the same."""
+    X, Z, K_XZ, L_inv_T = _nystrom_case(n, m)
+    assert torch.equal(torch.tril(L_inv_T, -1), torch.zeros_like(L_inv_T))
+    B1, C1 = nystrom_products(K_XZ, L_inv_T, nb=m)
+    B2, C2 = nystrom_products(K_XZ, L_inv_T, nb=nb)
+    assert _rel(B2, B1) <= 1e-12 and _rel(C2, C1) <= 1e-12
+    assert torch.equal(C2, C2.T)
+    sigma, width = 1e-2, nb or nystrom_panel_width(m)
+    monkeypatch.setattr(pcg, "nystrom_panel_width", lambda m: m)
+    M1 = nystrom_preconditioner_device(_matern52_2d, X, Z, sigma)
+    monkeypatch.setattr(pcg, "nystrom_panel_width", lambda m: width)
+    M2 = nystrom_preconditioner_device(_matern52_2d, X, Z, sigma)
+    assert abs(float(M2.delta) - float(M1.delta)) <= 1e-9 * float(M1.delta)
+    r = torch.from_numpy(np.random.default_rng(5).standard_normal(n))
+    assert _rel(M2(r), M1(r)) <= 1e-10
+
+
+@pytest.mark.parametrize("m,spans", [(1024, 1), (1000, 0)])
+def test_nystrom_panels_span_once_per_build(m, spans):
+    """``lgt.nystrom.panels`` marks each build that takes the panelled route."""
+    X, Z, _, _ = _nystrom_case(1100, m)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        nystrom_preconditioner_device(_matern52_2d, X, Z, 1e-2)
+    assert sum(e.name == "lgt.nystrom.panels" for e in prof.events()) == spans
+
+
+def test_nystrom_panels_match_jax_f64():
+    """The build at rank 1,024, where the panels engage by default, against
+    the JAX package's single products: ``delta`` within 1e-6 relative and
+    the same preconditioner apply."""
+    n, m, sigma = 2048, 1024, 1e-2
+    X, Z, _, _ = _nystrom_case(n, m, seed=29)
+    Xj = jnp.asarray(X.numpy())
+    M_j = jax_nystrom_device(_matern52_2d_jax, Xj, Xj[np.asarray(jax_landmark_indices(n, m))], sigma)
+    M_t = nystrom_preconditioner_device(_matern52_2d, X, Z, sigma)
+    assert abs(float(M_t.delta) - float(M_j.delta)) <= 1e-6 * float(M_j.delta)
+    r = np.random.default_rng(31).standard_normal(n)
     want = np.asarray(M_j(jnp.asarray(r)))
     got = M_t(torch.from_numpy(r)).numpy()
     assert np.max(np.abs(got - want)) <= 1e-6 * np.max(np.abs(want))
